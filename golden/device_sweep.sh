@@ -1,11 +1,13 @@
 #!/bin/bash
-# Broad byte-identity sweep on the real TPU device runtime vs the reference
-cd /root/repo
+# Broad byte-identity sweep of the device runtime (--device gpu) vs the
+# reference binary, run from the repository root on a machine with a GPU
+# and the reference checkout
+cd "$(dirname "$0")/.."
 T=/root/reference/test
 run() {
   local name="$1"; shift
   local ours ref
-  ours=$(timeout 1200 python -m minimap2_chaindp_tpu.cli "$@" 2>/dev/null | grep -v '^@PG')
+  ours=$(timeout 1200 python -m minimap2_chaindp_tpu.cli --device gpu "$@" 2>/dev/null | grep -v '^@PG')
   ref=$(.golden/minimap2_ref -t 12 "$@" 2>/dev/null | grep -v '^@PG')
   if [ "$ours" == "$ref" ]; then echo "OK   $name"; else echo "FAIL $name"; fi
 }

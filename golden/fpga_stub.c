@@ -7,8 +7,8 @@
  * blocking queue that `fpga_get_retbuf()` pops (consumed by recv_task_thread,
  * reference fpga_chaindp.c:228-271).
  *
- * This file is original code written for the TPU rebuild's test harness; it is not
- * part of the TPU framework itself.
+ * This file is original code written for this repository's test harness; it is
+ * not part of the aligner itself.
  */
 #include <stdlib.h>
 #include <string.h>

@@ -1,4 +1,4 @@
-"""minimap2_chaindp_tpu — a TPU-native long/short-read aligner.
+"""minimap2_chaindp_tpu — a GPU-accelerated long/short-read aligner.
 
 A from-scratch rebuild of the capabilities of stormalex/minimap2_chaindp
 (minimap2 v2.10 + FPGA chaining-DP offload): minimizer sketching, a

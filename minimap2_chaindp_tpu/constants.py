@@ -1,4 +1,4 @@
-"""Shared constants and encodings for the TPU-native seed-chain-extend aligner.
+"""Shared constants and encodings for the seed-chain-extend aligner.
 
 Data encodings follow the stock minimap2 forms documented in SURVEY.md (appendix):
   minimizer: x = hash64(kmer)<<8 | span ; y = rid<<32 | last_pos<<1 | strand

@@ -1,4 +1,4 @@
-"""Minimizer index as flat sorted tables (TPU-native CSR layout).
+"""Minimizer index as flat sorted tables (CSR layout).
 
 Replaces the reference's per-bucket khash (index.c:340-416) with one global
 sorted-key table + CSR offsets, the design SURVEY.md §7.3 calls for: lookup is a

@@ -1,15 +1,14 @@
 """Device-side index CSR construction: the O(n log n) minimizer pair sort
-runs on the TPU (jax.lax.sort over split-u32 key halves), the cheap O(n)
+runs on the device (jax.lax.sort over split-u32 key halves), the cheap O(n)
 run-boundary pass stays on the host.
 
 The reference builds its index with a 56-thread kt_pipeline sort
-(index.c:394 radix_sort_64 per bucket, run.sh:3); the TPU-native analog is
-one device sort over the whole (key, value) pair stream — for GRCh38-class
-inputs (~500M pairs) that is a single large-array sort the chip does at
-HBM bandwidth. Opt-in (MM2TPU_DEVICE_INDEX=1 or build_index(device=True)):
-on a tunnel-attached device the H2D/D2H round trip of the pair stream
-dwarfs the sort, so the default stays on the native host path; co-located
-deployments flip it on.
+(index.c:394 radix_sort_64 per bucket, run.sh:3); the device analog is one
+sort over the whole (key, value) pair stream — for GRCh38-class inputs
+(~500M pairs) a single large-array sort at device-memory bandwidth.
+Opt-in (MM2TPU_DEVICE_INDEX=1 or build_index(device=True)): whether it
+beats the native host path once the pair stream's H2D/D2H is counted is
+not measured, so the default stays on the host.
 
 Output is BIT-IDENTICAL to the host CSR: u64 sort order == lexicographic
 (biased-int32 hi, lo) order, and equal (key, value) pairs are

@@ -5,9 +5,9 @@ The "model" being sharded is the mapping pipeline itself:
     fragments, SURVEY.md §2 parallelism #2)
   * "index" axis: the sorted minimizer table is sharded across chips for
     genomes larger than one chip's HBM; per-shard lookups are combined with a
-    psum over the index axis (the all-to-all seed-routing design from
-    BASELINE.json's north star). With index_shards=1 this reduces to the
-    replicated-index fast path with no hot-path collectives.
+    psum over the index axis (all-to-all seed routing in gather form).
+    With index_shards=1 this reduces to the replicated-index fast path with
+    no hot-path collectives.
 """
 from __future__ import annotations
 
@@ -16,17 +16,10 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-try:  # jax >= 0.8 promotes shard_map out of experimental
-    from jax import shard_map
-    _SM_KW = {"check_vma": False}
-except ImportError:  # pragma: no cover - older jax
-    # the experimental shard_map only knows check_rep; branch the kwarg with
-    # the import so the fallback path actually runs on older jax
-    from jax.experimental.shard_map import shard_map
-    _SM_KW = {"check_rep": False}
+from jax import shard_map
+from jax.sharding import Mesh, PartitionSpec as P
 
-from ..ops import chain_pallas as CP
+from ..ops import chain_batch as CB
 
 
 def make_sharded_collect_step(mesh: Mesh, *, cap: int):
@@ -35,8 +28,8 @@ def make_sharded_collect_step(mesh: Mesh, *, cap: int):
     The CSR minimizer index is key-range-sharded over the "index" axis
     (ops/seeds_device.shard_index_tables); query minimizer batches are
     data-parallel over "data". Each index shard looks up its own key range
-    and the disjoint per-slot anchor contributions combine with psums over
-    ICI — no shard ever holds the whole index. Output anchors are
+    and the disjoint per-slot anchor contributions combine with psums — no
+    shard ever holds the whole index. Output anchors are
     data-sharded and identical to the single-chip device collector's.
     """
     from ..ops.seeds_device import _collect_dev
@@ -54,15 +47,13 @@ def make_sharded_collect_step(mesh: Mesh, *, cap: int):
                   dspec, dspec, dspec, dspec, dspec, dspec, dspec,
                   P(), dspec),
         out_specs=(dspec,) * 7,
-        **_SM_KW,
+        check_vma=False,
     ))
 
 
 def make_sharded_flow_step(mesh: Mesh, *, cap: int, max_dist_x: int,
                            max_dist_y: int, bw: int, max_skip: int,
-                           use_exc: bool, score_bound: int,
-                           interpret: bool = False,
-                           ship_anchors: bool = True):
+                           score_bound: int, ship_anchors: bool = True):
     """Multi-chip fused mapping step: sharded-index seed collection with
     CAPACITY-BOUNDED hit routing, then the data-parallel window + chaining
     stages of the single-chip flow (models/device_flow.flow_tail).
@@ -76,9 +67,9 @@ def make_sharded_flow_step(mesh: Mesh, *, cap: int, max_dist_x: int,
          cap/n_index) buffer tagged with global slot ids; the host sizes
          that buffer from the real per-shard hit counts and falls back on
          overflow, so the all_gather that routes hits to the data owner
-         moves only actual anchors — ICI volume is bounded by the true
-         anchor count, never the padded capacity (the BASELINE north-star
-         all-to-all seed routing, in gather form).
+         moves only actual anchors — collective volume is bounded by the
+         true anchor count, never the padded capacity (all-to-all seed
+         routing, in gather form).
       3. One 3-key stable sort ((biased xhi, rpos, global slot)) rebuilds
          the exact single-device anchor order, so output is byte-identical
          to the single-chip flow; windows + chaining then run with ZERO
@@ -175,8 +166,8 @@ def make_sharded_flow_step(mesh: Mesh, *, cap: int, max_dist_x: int,
         return flow_tail(
             xh2, xl2, yh2, yl2, total, nn, w1, exc, cap=cap,
             max_dist_x=max_dist_x, max_dist_y=max_dist_y, bw=bw,
-            max_skip=max_skip, use_exc=use_exc, score_bound=score_bound,
-            interpret=interpret, ship_anchors=ship_anchors)
+            max_skip=max_skip, score_bound=score_bound,
+            ship_anchors=ship_anchors)
 
     return jax.jit(shard_map(
         step, mesh=mesh,
@@ -184,19 +175,19 @@ def make_sharded_flow_step(mesh: Mesh, *, cap: int, max_dist_x: int,
                   dspec, dspec, dspec, dspec, dspec, P(), dspec,
                   dspec, dspec, dspec),
         out_specs=(dspec,) * (7 if ship_anchors else 3),
-        **_SM_KW,
+        check_vma=False,
     ))
 
 
 def make_sharded_map_step(mesh: Mesh, *, max_n: int, max_dist: int, bw: int,
-                          max_skip: int, interpret: bool = False):
+                          max_skip: int):
     """Build the jitted multi-chip mapping compute step.
 
     Inputs (global shapes):
       qkeys   (R, M) int32   — per-read query minimizer keys  [data-sharded]
       xhi/rpos/qpos/span/sid (R, max_n) int32 — anchors       [data-sharded]
-      nn      (R, 128) int32 — per-read anchor counts          [data-sharded]
-      w1/exc (R, 128)     — per-read gap-cost slope + exceptions  [data-sharded]
+      nn      (R,) int32     — per-read anchor counts          [data-sharded]
+      w1 (R,) / exc (R, 2*N_EXC) — gap-cost slope + exceptions [data-sharded]
       keys    (K,) int32     — sorted index keys               [index-sharded]
     Returns f, p, flag (data-sharded) and occ (R, M) total occurrence counts
     across all index shards (psum over "index").
@@ -211,18 +202,17 @@ def make_sharded_map_step(mesh: Mesh, *, max_n: int, max_dist: int, bw: int,
         hit = (keys[pos_c] == qkeys).astype(jnp.int32)
         occ = jax.lax.psum(hit, "index")
 
-        f, p, flag = CP.chain_scores_batch(
+        f, p, flag = CB.chain_scores_batch(
             xhi, rpos, qpos, span, sid, stw, nn, w1, exc, max_n=max_n,
             max_dist_x=max_dist, max_dist_y=max_dist, bw=bw,
-            max_skip=max_skip, is_cdna=False, many_segs=False,
-            interpret=interpret)
-        # cross-shard summary (stats/telemetry ride the ICI too)
-        total_flagged = jax.lax.psum(jnp.sum(flag[:, 0]), "data")
+            max_skip=max_skip, is_cdna=False, many_segs=False)
+        # cross-shard summary
+        total_flagged = jax.lax.psum(jnp.sum(flag), "data")
         return f, p, flag, occ, total_flagged
 
     return jax.jit(shard_map(
         step, mesh=mesh,
         in_specs=(dspec, dspec, dspec, dspec, dspec, dspec, dspec, dspec, dspec, dspec, ispec),
         out_specs=(dspec, dspec, dspec, dspec, P()),
-        **_SM_KW,
+        check_vma=False,
     ))

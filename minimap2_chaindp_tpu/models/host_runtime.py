@@ -4,12 +4,11 @@ The reference pays its ksw2 cost per call but keeps the calls native SIMD
 (align.c:220 -> ksw2_*_sse); a Python per-job driver pays ~0.2 ms of
 marshalling per extension call instead, which dominates the host path at
 ~6 extension jobs per read.  This runtime reuses the device runtime's
-cross-read wave scheduler (models/batch_align.py) with the device disabled:
-every in-flight read's current extension wave lands in ONE native batch
-call, so the ctypes/marshalling cost amortizes across the whole batch.
-Never imports jax — it is the mapping path when no TPU is attached (and the
-permanent fallback when the device link is marked bad, the framework-level
-err_flag of map.c:933-944).
+cross-read wave scheduler (models/batch_align.py): every in-flight read's
+current extension wave lands in ONE native batch call, so the
+ctypes/marshalling cost amortizes across the whole batch.  Never imports
+jax — it is the mapping path of `--device host`, and of `--device auto`
+when JAX has no GPU backend.
 
 Output is bit-identical to the per-fragment host pipeline and to the device
 runtime (asserted by tests/test_host_runtime.py)."""
@@ -28,8 +27,8 @@ class HostRuntime:
         self.mi = mi
         self.opt = opt
         self.timers = Timers()
-        from .batch_align import DeviceAlignExecutor
-        self._align_exec = DeviceAlignExecutor(opt, use_device=False)
+        from .batch_align import AlignExecutor
+        self._align_exec = AlignExecutor(opt)
         # -t worker pool (the reference's kt_for over fragments,
         # kthread.c:125/145): the one-call native fast path releases the
         # GIL for its whole C call, so fragments fan out across real cores;

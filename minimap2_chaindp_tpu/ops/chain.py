@@ -10,8 +10,8 @@ Implements the reference's split offload contract exactly:
     min_cnt/min_sc filters, and re-sort of chains by first-anchor x
     (chain.c:329-431)
 
-This is the golden model the Pallas kernel (ops/chain_pallas.py) is validated
-against; it is also the production fallback for overflow reads.
+This is the golden model the batched device pass (ops/chain_batch.py) is
+validated against; it is also the production fallback for overflow reads.
 """
 from __future__ import annotations
 
@@ -28,13 +28,13 @@ class Chains:
     u: np.ndarray        # (n_u,) uint64 — score<<32 | n_anchors, chains sorted by first-anchor x
 
 
-def chain_dp(max_dist_x: int, max_dist_y: int, bw: int, max_skip: int,
-             min_cnt: int, min_sc: int, is_cdna: bool, n_segs: int,
-             anchors: np.ndarray) -> Chains:
+def chain_fpv(max_dist_x: int, max_dist_y: int, bw: int, max_skip: int,
+              is_cdna: bool, n_segs: int, anchors: np.ndarray):
+    """Score/predecessor scan with the banded sliding window, max_skip
+    early break and float32 avg_qspan gap cost (chain.c:246-284): the
+    per-anchor f (best score), p (predecessor, -1 for none) and v (peak
+    score along the chain) as int lists."""
     n = len(anchors)
-    empty = Chains(np.empty((0, 2), dtype=np.uint64), np.empty(0, dtype=np.uint64))
-    if n == 0:
-        return empty
     ax = [int(v) for v in anchors[:, 0]]
     ay = [int(v) for v in anchors[:, 1]]
     f, p, t, v = [0] * n, [0] * n, [0] * n, [0] * n
@@ -42,13 +42,6 @@ def chain_dp(max_dist_x: int, max_dist_y: int, bw: int, max_skip: int,
     qpos = [y & 0xFFFFFFFF for y in ay]
     span = [(y >> 32) & 0xFF for y in ay]
     avg_qspan = float(np.float32(sum(span)) / np.float32(n))  # f32 division, chain.c:47
-
-    # compact output (the offload contract)
-    cseed_x: list[int] = []
-    cseed_y: list[int] = []
-    cf: list[int] = []
-    cp: list[int] = []
-    fpga_id = [-1] * n
 
     st = 0
     for i in range(n):
@@ -99,30 +92,54 @@ def chain_dp(max_dist_x: int, max_dist_y: int, bw: int, max_skip: int,
                 t[p[j]] = i
         f[i], p[i] = max_f, max_j
         v[i] = v[max_j] if max_j >= 0 and v[max_j] > max_f else max_f
+    return f, p, v
 
-        # compact-array append (chain.c:286-316); predecessors not yet emitted
-        # are appended first, so compact order is NOT monotone in i
-        if max_j >= 0:
-            if fpga_id[max_j] == -1:
-                cseed_x.append(ax[max_j])
-                cseed_y.append(ay[max_j])
-                cf.append(f[max_j])
-                cp.append((-1 << 2) | (1 if v[max_j] >= min_sc else 0)
-                          | ((1 if f[max_j] < v[max_j] else 0) << 1))
-                fpga_id[max_j] = len(cp) - 1
+
+def chain_dp(max_dist_x: int, max_dist_y: int, bw: int, max_skip: int,
+             min_cnt: int, min_sc: int, is_cdna: bool, n_segs: int,
+             anchors: np.ndarray) -> Chains:
+    if len(anchors) == 0:
+        return Chains(np.empty((0, 2), dtype=np.uint64),
+                      np.empty(0, dtype=np.uint64))
+    f, p, v = chain_fpv(max_dist_x, max_dist_y, bw, max_skip, is_cdna,
+                        n_segs, anchors)
+    cx, cy, cf, cp = compact_from_fpv(anchors, f, p, v, min_sc)
+    return chain_backtrack(cx, cy, cf, cp, min_cnt, min_sc)
+
+
+def compact_from_fpv(anchors: np.ndarray, f, p, v, min_sc: int):
+    """The offload-contract compact arrays from f/p/v (chain.c:286-316):
+    predecessors not yet emitted are appended first, so compact order is
+    NOT monotone in i. Every f/p/v entry an iteration reads is already
+    final, so building them after the scan equals building them inside
+    it."""
+    n = len(anchors)
+    fpga_id = np.full(n, -1, dtype=np.int64)
+    cseed_x: list[int] = []
+    cseed_y: list[int] = []
+    cf: list[int] = []
+    cp: list[int] = []
+    ax, ay = anchors[:, 0], anchors[:, 1]
+    for i in range(n):
+        max_j = int(p[i])
+        if max_j >= 0 and fpga_id[max_j] == -1:
+            cseed_x.append(int(ax[max_j]))
+            cseed_y.append(int(ay[max_j]))
+            cf.append(int(f[max_j]))
+            cp.append((-1 << 2) | (1 if v[max_j] >= min_sc else 0)
+                      | ((1 if f[max_j] < v[max_j] else 0) << 1))
+            fpga_id[max_j] = len(cp) - 1
         alive = v[i] >= min_sc
         if alive or max_j >= 0:
-            cseed_x.append(ax[i])
-            cseed_y.append(ay[i])
-            cf.append(f[i])
-            pred = fpga_id[max_j] if max_j >= 0 else -1
+            cseed_x.append(int(ax[i]))
+            cseed_y.append(int(ay[i]))
+            cf.append(int(f[i]))
+            pred = int(fpga_id[max_j]) if max_j >= 0 else -1
             cp.append((pred << 2) | (1 if alive else 0)
                       | ((1 if f[i] < v[i] else 0) << 1))
             fpga_id[i] = len(cp) - 1
-
-    return chain_backtrack(np.array(cseed_x, dtype=np.uint64),
-                           np.array(cseed_y, dtype=np.uint64),
-                           cf, cp, min_cnt, min_sc)
+    return (np.array(cseed_x, dtype=np.uint64),
+            np.array(cseed_y, dtype=np.uint64), cf, cp)
 
 
 def chain_backtrack(cseed_x: np.ndarray, cseed_y: np.ndarray,

@@ -34,7 +34,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from .. import constants as C
-from .chain import Chains, chain_backtrack
+from .chain import Chains, chain_backtrack, compact_from_fpv
 
 NEG_INF = -0x40000000
 
@@ -141,6 +141,119 @@ def chain_scores(xhi, rpos, qpos, span, sid, n, max_dist_x, max_dist_y, bw,
     return f, p, v
 
 
+# candidate columns scored per step of the batched plain version
+WIN = 256
+
+
+@partial(jax.jit, static_argnames=("max_n", "max_dist_x", "max_dist_y",
+                                   "bw", "max_skip", "is_cdna", "many_segs"))
+def chain_scores_batch_xla(xhi, rpos, qpos, span, sid, stw, nn, w1, exc, *,
+                           max_n, max_dist_x, max_dist_y, bw, max_skip,
+                           is_cdna, many_segs):
+    """Plain jnp/lax version of ops/chain_batch.chain_scores_batch: the
+    same inputs and (f, p, flag) contract, vectorized over the reads of the
+    batch and over WIN predecessor candidates per step.
+
+    Anchors run in order (f[i] needs every earlier f[j]); for anchor i the
+    window [stw, i) is scanned newest-first in WIN-wide steps until every
+    read's window is exhausted. Per read it keeps the best score (ties go
+    to the larger j, which the reference's descending scan reaches first),
+    its index, and how many valid candidates the descending scan meets
+    before it; the read is flagged when that count exceeds max_skip for an
+    anchor with a predecessor (ops/chain_batch.py: only then can the
+    reference's early break change f/p)."""
+    from .chain_batch import N_EXC, TBL
+    R = rpos.shape[0]
+    W = min(WIN, max_n)
+    single_seg = not is_cdna and not many_segs
+    mdy_x = min(max_dist_y, max_dist_x)
+    # W leading pad columns: a step's slice never starts below column 0
+    padw = lambda a: jnp.pad(a, ((0, 0), (W, 0)))
+    xp, rp, qp, sp = padw(xhi), padw(rpos), padw(qpos), padw(sid)
+    kk = jnp.arange(W, dtype=jnp.int32)[None, :]
+    w1c = w1[:, None]
+    excs = [(exc[:, 2 * k:2 * k + 1], exc[:, 2 * k + 1:2 * k + 2])
+            for k in range(N_EXC)]
+    cut = lambda a, s: jax.lax.dynamic_slice_in_dim(a, s, W, axis=1)
+
+    def anchor(i, state):
+        fp, p, flag = state
+        col = lambda a: jax.lax.dynamic_slice_in_dim(a, i, 1, axis=1)
+        xi, ri, qi, qs, si = (col(a) for a in (xhi, rpos, qpos, span, sid))
+        st = col(stw)[:, 0]
+        act = i < nn
+        steps = jnp.max(jnp.where(act, (i - st + W - 1) // W, 0))
+
+        def step(c, carry):
+            best, best_j, snap, tot = carry
+            s = i - c * W            # padded column of j = i - (c+1)W
+            j = s - W + kk
+            rj, qj, fj = cut(rp, s), cut(qp, s), cut(fp, s)
+            dr = ri - rj
+            dq = qi - qj
+            dd = jnp.abs(dr - dq)
+            valid = (j >= st[:, None]) & (j < i) & act[:, None]
+            if single_seg:
+                valid &= (dr != 0) \
+                    & ((dq - 1).astype(jnp.uint32) < jnp.uint32(mdy_x)) \
+                    & (dd <= bw)
+            else:
+                same = cut(sp, s) == si
+                valid &= (cut(xp, s) == xi) & (dr <= max_dist_x)
+                valid &= ~((same & (dr == 0)) | (dq <= 0))
+                valid &= ~((same & (dq > max_dist_y)) | (dq > max_dist_x))
+                valid &= ~(same & (dd > bw))
+                if many_segs and not is_cdna:
+                    valid &= ~(same & (dr > max_dist_y))
+            sc = jnp.minimum(jnp.minimum(dq, dr), qs)
+            ddf = dd.astype(jnp.float32)
+            c_lin = (ddf * w1c).astype(jnp.int32)
+            for dd_k, cl_k in excs:
+                c_lin = jnp.where(dd == dd_k, cl_k, c_lin)
+            log_dd = (jax.lax.bitcast_convert_type(
+                jnp.maximum(ddf, 1.0), jnp.int32) >> 23) - 127
+            pen_same = c_lin + (log_dd >> 1)
+            if single_seg:
+                sc = sc - pen_same
+            else:
+                pen_other = jnp.where(dd >= TBL, log_dd,
+                                      jnp.minimum(c_lin, log_dd))
+                if is_cdna:
+                    sc = jnp.where(~same & (dr == 0), sc + 1,
+                                   jnp.where((dr > dq) | ~same,
+                                             sc - pen_other, sc - pen_same))
+                else:
+                    sc = jnp.where(same, sc - pen_same,
+                                   jnp.where(dr == 0, sc + 1,
+                                             sc - pen_other))
+            scv = jnp.where(valid, sc + fj, NEG_INF)
+            cmax = jnp.max(scv, axis=1)
+            ck = W - 1 - jnp.argmax(scv[:, ::-1], axis=1)   # largest j
+            before = jnp.sum(valid & (kk > ck[:, None]), axis=1)
+            imp = cmax > best
+            return (jnp.where(imp, cmax, best),
+                    jnp.where(imp, s - W + ck, best_j),
+                    jnp.where(imp, tot + before, snap),
+                    tot + jnp.sum(valid, axis=1))
+
+        z = jnp.zeros(R, jnp.int32)
+        best, best_j, snap, _ = jax.lax.fori_loop(
+            0, steps, step, (jnp.full(R, NEG_INF, jnp.int32), z - 1, z, z))
+        qs = qs[:, 0]
+        have = act & (best > qs)
+        f_i = jnp.where(act, jnp.maximum(best, qs), 0)
+        p_i = jnp.where(have, best_j, -1)
+        fp = jax.lax.dynamic_update_slice_in_dim(fp, f_i[:, None], W + i,
+                                                 axis=1)
+        p = jax.lax.dynamic_update_slice_in_dim(p, p_i[:, None], i, axis=1)
+        return fp, p, flag | (have & (snap > max_skip)).astype(jnp.int32)
+
+    state = (jnp.zeros((R, W + max_n), jnp.int32),
+             jnp.full((R, max_n), -1, jnp.int32), jnp.zeros(R, jnp.int32))
+    fp, p, flag = jax.lax.fori_loop(0, jnp.max(nn, initial=0), anchor, state)
+    return fp[:, W:], p, flag
+
+
 def split_anchors(anchors: np.ndarray):
     """64-bit (x, y) anchors -> int32 component arrays."""
     x, y = anchors[:, 0], anchors[:, 1]
@@ -150,39 +263,6 @@ def split_anchors(anchors: np.ndarray):
     span = ((y >> np.uint64(32)) & np.uint64(0xFF)).astype(np.int32)
     sid = ((y & np.uint64(C.MM_SEED_SEG_MASK)) >> np.uint64(C.MM_SEED_SEG_SHIFT)).astype(np.int32)
     return xhi, rpos, qpos, span, sid
-
-
-def compact_from_fpv(anchors: np.ndarray, f: np.ndarray, p: np.ndarray,
-                     v: np.ndarray, min_sc: int):
-    """Rebuild the offload-contract compact arrays from f/p/v, exactly as
-    chain.c:286-316 does per iteration."""
-    n = len(anchors)
-    fpga_id = np.full(n, -1, dtype=np.int64)
-    cseed_x: list[int] = []
-    cseed_y: list[int] = []
-    cf: list[int] = []
-    cp: list[int] = []
-    ax, ay = anchors[:, 0], anchors[:, 1]
-    for i in range(n):
-        max_j = int(p[i])
-        if max_j >= 0 and fpga_id[max_j] == -1:
-            cseed_x.append(int(ax[max_j]))
-            cseed_y.append(int(ay[max_j]))
-            cf.append(int(f[max_j]))
-            cp.append((-1 << 2) | (1 if v[max_j] >= min_sc else 0)
-                      | ((1 if f[max_j] < v[max_j] else 0) << 1))
-            fpga_id[max_j] = len(cp) - 1
-        alive = v[i] >= min_sc
-        if alive or max_j >= 0:
-            cseed_x.append(int(ax[i]))
-            cseed_y.append(int(ay[i]))
-            cf.append(int(f[i]))
-            pred = int(fpga_id[max_j]) if max_j >= 0 else -1
-            cp.append((pred << 2) | (1 if alive else 0)
-                      | ((1 if f[i] < v[i] else 0) << 1))
-            fpga_id[i] = len(cp) - 1
-    return (np.array(cseed_x, dtype=np.uint64), np.array(cseed_y, dtype=np.uint64),
-            cf, cp)
 
 
 def round_up(x: int, m: int) -> int:

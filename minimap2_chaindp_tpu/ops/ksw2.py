@@ -16,8 +16,8 @@ ksw2_extd2_sse.c bit-exactly in NumPy int8 arithmetic, including:
 Also ksw_ll_i16, the striped local SW used by inversion rescue
 (ksw2_ll_sse.c:80-147), with its exact end-position tie-breaking.
 
-This is the golden model the Pallas wavefront kernel (ops/ksw2_pallas.py) is
-validated against, and the host fallback for odd-shaped problems.
+This is the golden model the native SIMD batch (native/ksw2_extd2.cc) is
+validated against, and the host path for odd-shaped problems.
 """
 from __future__ import annotations
 
@@ -443,3 +443,41 @@ def ksw_ll(qseq: np.ndarray, tseq: np.ndarray, mat: np.ndarray, gapo: int,
     stripe_i = (eq % slen) * 8 + eq // slen
     qe = int(eq[np.argmax(stripe_i)])
     return gmax, qe, te
+
+
+def decode_cigar(ops, n_ops, fin_i, fin_j, is_rev, min_intron_len=0):
+    """Run-length encode backtrack step codes (0 = M, 1 = D, 2/4 = I,
+    3 = N with splice or D without) into a CIGAR, with the tail and
+    reverse conventions of ksw_backtrack (ksw2.h:137-150); vectorized —
+    walks are thousands of steps per job."""
+    if n_ops:
+        from ..native import decode_cigar_native
+        res = decode_cigar_native(ops, n_ops, fin_i, fin_j, is_rev,
+                                  min_intron_len)
+        if res is not None:
+            return res
+    cigar: list[int] = []
+    if n_ops:
+        st = ops[:n_ops].astype(np.int64)
+        # ksw2.h:137-143 state machine: 0 -> M; 1 (and 3 without splice)
+        # -> D; 3 with splice -> N; everything ELSE (2 = insertion, 4 =
+        # second-affine long-gap insertion) -> I. State 4 only occurs in
+        # dual-affine extd2 (splice has no second gap profile).
+        op = np.where(st == 0, 0,
+                      np.where((st == 2) | (st == 4), 1,
+                               np.where(st == 1, 2,
+                                        3 if min_intron_len > 0 else 2)))
+        cut = np.nonzero(np.diff(op))[0] + 1
+        starts = np.concatenate([[0], cut])
+        ends = np.concatenate([cut, [n_ops]])
+        cigar = list(((ends - starts) << 4 | op[starts]).astype(np.int64))
+        cigar = [int(v) for v in cigar]
+    if fin_i >= 0:
+        _push_cigar(cigar, 3 if (min_intron_len > 0
+                                 and fin_i >= min_intron_len) else 2,
+                    fin_i + 1)
+    if fin_j >= 0:
+        _push_cigar(cigar, 1, fin_j + 1)
+    if not is_rev:
+        cigar.reverse()
+    return cigar

@@ -3,7 +3,7 @@
 Design (SURVEY.md §2 "Distributed communication backend"):
   * 2D mesh ("data", "index"): read batches are data-parallel over "data";
     the minimizer index tables can be replicated (fits-in-HBM genomes) or
-    sharded over "index" with lookups combined by ICI collectives
+    sharded over "index" with lookups combined by collectives
     (>HBM genomes).
   * No cross-chip collectives on the per-read hot path when the index is
     replicated — the reference's FPGA DMA transport maps to plain host->HBM

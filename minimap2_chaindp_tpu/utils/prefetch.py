@@ -1,4 +1,4 @@
-"""Pipeline-parallel prefetching — the TPU-framework analog of the
+"""Pipeline-parallel prefetching — the analog of the
 reference's kt_pipeline (kthread.c:225) and its double-buffered index reader
 (read_task_thread/map_task_thread, main.c:133-275): a background thread
 stays `depth` items ahead of the consumer, so sequence IO / index building

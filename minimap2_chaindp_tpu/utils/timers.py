@@ -1,6 +1,6 @@
 """Per-stage wall-clock instrumentation and counters.
 
-The TPU-native analog of the reference's hand-rolled telemetry
+The analog of the reference's hand-rolled telemetry
 (realtime_msec copies, result_time/send_task/process_result/soft_chaindp
 accumulators, main.c:110-116 & :629-663): named stage timers, counters
 (device reads vs host fallbacks ~ soft_chaindp_num), and a summary printer."""

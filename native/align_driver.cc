@@ -2412,7 +2412,7 @@ int64_t mm2tpu_align_skeleton(
 // map.c:933-1015): Ctx setup from PRECOMPUTED chains, region generation,
 // chain_post selection, est_err, base-level alignment waves and mapq.
 // Shared by the all-native path (chains from mm2tpu_chain_dp) and the
-// device-offload flow (chains computed on the TPU, models/device_flow.py,
+// device-offload flow (chains computed on the device, models/device_flow.py,
 // the fork's FPGA->result_thread handoff, fpga_chaindp.c:228).
 // out_a: interleaved (x,y) compact chain anchors, mutated in place (seed
 // flags, squeeze); u: score<<32|count per chain.
@@ -2936,7 +2936,7 @@ extern "C" int64_t mm2tpu_map_batch_pe_text(
 
 // Map one read FROM PRECOMPUTED CHAINS and emit its SAM/PAF lines: the
 // device-offload text path (sketch/collect/chain already done — chains
-// from the TPU flow, models/device_flow.py).  a = interleaved (x,y)
+// from the device flow, models/device_flow.py).  a = interleaved (x,y)
 // compact chain anchors (n_v pairs), u = score<<32|count per chain (n_u),
 // mini/n_mini = mini_pos entries, rep_len from seed collection.  Other
 // params/returns as mm2tpu_map_unit_text.

@@ -217,9 +217,9 @@ void mm2tpu_fix_bad_ends(
     out[0] = as; out[1] = cnt;
 }
 
-// ---- RLE of the on-chip walker's step codes into a CIGAR, with the
+// ---- RLE of backtrack step codes into a CIGAR, with the
 // ksw_backtrack tail/reverse conventions (ksw2.h:137-150); mirrors
-// ops/ksw2_backtrack.decode_cigar.  out needs capacity n_ops + 2.
+// ops/ksw2.decode_cigar.  out needs capacity n_ops + 2.
 int64_t mm2tpu_decode_cigar(
     const int8_t* ops, int64_t n_ops, int64_t fin_i, int64_t fin_j,
     int32_t is_rev, int32_t min_intron_len, uint32_t* out)

@@ -1,6 +1,6 @@
 // Native host epilogue for the chaining stage.
 //
-// The TPU kernel returns per-anchor (f, p) score/predecessor arrays; this
+// The device chaining pass returns per-anchor (f, p) score/predecessor arrays; this
 // module does the per-read O(n) bookkeeping that follows — the equivalents of
 // the reference's compact-array construction (chain.c:286-316) and bottom-half
 // backtrack (mm_chain_dp_bottom, chain.c:329-431) — in C++ instead of Python,

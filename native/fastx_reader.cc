@@ -1,4 +1,4 @@
-// Native FASTA/FASTQ reader — the TPU framework's equivalent of the
+// Native FASTA/FASTQ reader — this aligner's equivalent of the
 // reference's C sequence-IO layer (bseq.c + kseq.h): gzip-transparent
 // buffered parsing, U->T conversion (bseq.c:70-72), and block reads sized
 // by base count (mm_bseq_read3, bseq.c:78).

@@ -5,14 +5,14 @@ import sys
 
 import pytest
 
-from conftest import GOLDEN_DIR, REF_TEST_DIR
+from conftest import GOLDEN_DIR, ref_input
 
 
 def test_mappy_api():
     import minimap2_chaindp_tpu.mappy as mp
-    a = mp.Aligner(os.path.join(REF_TEST_DIR, "MT-human.fa"))
+    a = mp.Aligner(ref_input("MT-human.fa"))
     assert a and a.n_seq == 1 and a.seq_names == ["MT_human"]
-    q = next(mp.fastx_read(os.path.join(REF_TEST_DIR, "MT-orang.fa")))
+    q = next(mp.fastx_read(ref_input("MT-orang.fa")))
     hits = list(a.map(q[1], name="MT_orang"))
     assert len(hits) == 1
     h = hits[0]
@@ -31,9 +31,9 @@ def test_mappy_api():
 def test_index_roundtrip(tmp_path):
     import minimap2_chaindp_tpu.mappy as mp
     idx = str(tmp_path / "mt.mm2i")
-    a1 = mp.Aligner(os.path.join(REF_TEST_DIR, "MT-human.fa"), fn_idx_out=idx)
+    a1 = mp.Aligner(ref_input("MT-human.fa"), fn_idx_out=idx)
     a2 = mp.Aligner(idx)
-    q = next(mp.fastx_read(os.path.join(REF_TEST_DIR, "MT-orang.fa")))
+    q = next(mp.fastx_read(ref_input("MT-orang.fa")))
     h1 = next(a1.map(q[1], name="MT_orang"))
     h2 = next(a2.map(q[1], name="MT_orang"))
     assert str(h1) == str(h2)
@@ -48,12 +48,12 @@ def test_index_mmap_load(tmp_path):
     import minimap2_chaindp_tpu.mappy as mp
     from minimap2_chaindp_tpu.index.serialize import load_index
     idx = str(tmp_path / "mt.mm2i")
-    mp.Aligner(os.path.join(REF_TEST_DIR, "MT-human.fa"), fn_idx_out=idx)
+    mp.Aligner(ref_input("MT-human.fa"), fn_idx_out=idx)
     mm, eager = load_index(idx, mmap=True), load_index(idx, mmap=False)
     assert isinstance(mm.keys, np.memmap)
     for tbl in ("S", "keys", "starts", "values"):
         assert np.array_equal(getattr(mm, tbl), getattr(eager, tbl)), tbl
-    q = next(mp.fastx_read(os.path.join(REF_TEST_DIR, "MT-orang.fa")))
+    q = next(mp.fastx_read(ref_input("MT-orang.fa")))
     h = next(mp.Aligner(idx).map(q[1], name="MT_orang"))  # mmap default
     assert h.mapq == 60
     trunc = str(tmp_path / "trunc.mm2i")
@@ -70,8 +70,8 @@ def test_cli_sam_golden():
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     out = subprocess.run(
         [sys.executable, "-m", "minimap2_chaindp_tpu.cli", "-a", "--device", "host",
-         os.path.join(REF_TEST_DIR, "MT-human.fa"),
-         os.path.join(REF_TEST_DIR, "MT-orang.fa")],
+         ref_input("MT-human.fa"),
+         ref_input("MT-orang.fa")],
         capture_output=True, text=True, check=True, cwd="/root/repo", env=env)
     mine = [l for l in out.stdout.rstrip("\n").split("\n")
             if not l.startswith("@PG")]
@@ -88,7 +88,7 @@ def test_cli_multipart_index(mode, golden):
     """-I splits the index into parts, each mapped in turn with its own SAM
     header (reference main.c:133-275); byte-identical to the reference."""
     env = dict(os.environ, JAX_PLATFORMS="cpu")
-    qinv = os.path.join(REF_TEST_DIR, "q-inv.fa")
+    qinv = ref_input("q-inv.fa")
     out = subprocess.run(
         [sys.executable, "-m", "minimap2_chaindp_tpu.cli", *mode,
          "--device", "host", "-I", "5k", qinv, qinv],
@@ -112,8 +112,8 @@ def test_mappy_cs_md():
     """Aligner.map(cs=True, MD=True) populates the cs/MD strings like the
     reference mappy (mappy.pyx:118-135), matching the PAF tag values."""
     import minimap2_chaindp_tpu.mappy as mp
-    a = mp.Aligner(os.path.join(REF_TEST_DIR, "MT-human.fa"))
-    q = next(mp.fastx_read(os.path.join(REF_TEST_DIR, "MT-orang.fa")))
+    a = mp.Aligner(ref_input("MT-human.fa"))
+    q = next(mp.fastx_read(ref_input("MT-orang.fa")))
     h = next(a.map(q[1], cs=True, MD=True))
     # cross-check against the reference binary (one flag per run — the
     # reference's PAF writer emits only one of cs/MD at a time)
@@ -122,8 +122,8 @@ def test_mappy_cs_md():
     def ref_tag(flag, name):
         r = subprocess.run(
             ["/root/repo/.golden/minimap2_ref", "-c", flag, "-t", "12",
-             os.path.join(REF_TEST_DIR, "MT-human.fa"),
-             os.path.join(REF_TEST_DIR, "MT-orang.fa")],
+             ref_input("MT-human.fa"),
+             ref_input("MT-orang.fa")],
             capture_output=True, text=True, check=True)
         tags = dict(t.split(":", 2)[::2] for t in r.stdout.split("\t")[12:])
         return tags[name].strip()
@@ -139,7 +139,7 @@ def test_cli_flag_parity_X_and_M(tmp_path):
     """-X expands to -D -P --no-long-join --dual=no (main.c:336) and -M sets
     mask_level; both byte-identical to the reference binary."""
     env = dict(os.environ, JAX_PLATFORMS="cpu")
-    qinv = os.path.join(REF_TEST_DIR, "q-inv.fa")
+    qinv = ref_input("q-inv.fa")
     ref = subprocess.run(["/root/repo/.golden/minimap2_ref", "-X", "-c",
                           "-t", "12", qinv, qinv],
                          capture_output=True, text=True, check=True)
@@ -171,8 +171,8 @@ def test_cli_print_seeds_dump():
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     out = subprocess.run(
         [sys.executable, "-m", "minimap2_chaindp_tpu.cli", "--print-seeds",
-         "-a", os.path.join(REF_TEST_DIR, "MT-human.fa"),
-         os.path.join(REF_TEST_DIR, "MT-orang.fa")],
+         "-a", ref_input("MT-human.fa"),
+         ref_input("MT-orang.fa")],
         capture_output=True, text=True, check=True, cwd="/root/repo", env=env)
     mine = [l for l in out.stderr.split("\n")
             if l.startswith(("QR\t", "QM\t", "CN\t"))]
@@ -188,8 +188,8 @@ def test_cli_print_aln_seq_dump():
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     out = subprocess.run(
         [sys.executable, "-m", "minimap2_chaindp_tpu.cli", "--print-aln-seq",
-         "-a", os.path.join(REF_TEST_DIR, "t-inv.fa"),
-         os.path.join(REF_TEST_DIR, "q-inv.fa")],
+         "-a", ref_input("t-inv.fa"),
+         ref_input("q-inv.fa")],
         capture_output=True, text=True, check=True, cwd="/root/repo", env=env)
     lines = out.stderr.split("\n")
     mine = []
@@ -247,11 +247,11 @@ def test_cli_map_from_mmi(tmp_path):
     mmi = str(tmp_path / "mt.mmi")
     subprocess.run(
         [sys.executable, "-m", "minimap2_chaindp_tpu.cli", "-d", mmi,
-         os.path.join(REF_TEST_DIR, "MT-human.fa")],
+         ref_input("MT-human.fa")],
         capture_output=True, check=True, cwd="/root/repo", env=env)
     a = subprocess.run(
         [sys.executable, "-m", "minimap2_chaindp_tpu.cli", "-a",
-         "--device", "host", mmi, os.path.join(REF_TEST_DIR, "MT-orang.fa")],
+         "--device", "host", mmi, ref_input("MT-orang.fa")],
         capture_output=True, text=True, check=True, cwd="/root/repo", env=env)
     with open(os.path.join(GOLDEN_DIR, "mt.sam")) as f:
         golden = [l.rstrip("\n") for l in f if not l.startswith("@PG")]
@@ -267,11 +267,11 @@ def test_mappy_mmi_roundtrip():
     import tempfile
     with tempfile.TemporaryDirectory() as td:
         mmi = os.path.join(td, "mt.mmi")
-        a = mappy.Aligner(os.path.join(REF_TEST_DIR, "MT-human.fa"),
+        a = mappy.Aligner(ref_input("MT-human.fa"),
                           preset="map-ont", fn_idx_out=mmi)
         b = mappy.Aligner(mmi, preset="map-ont")
         q = next(mappy.fastx_read(
-            os.path.join(REF_TEST_DIR, "MT-orang.fa")))[1]
+            ref_input("MT-orang.fa")))[1]
         ha = [str(h) for h in a.map(q)]
         hb = [str(h) for h in b.map(q)]
     assert ha and ha == hb
@@ -284,11 +284,11 @@ def test_cli_prebuilt_noseq_guard(tmp_path):
     mmi = str(tmp_path / "noseq.mmi")
     subprocess.run(
         [sys.executable, "-m", "minimap2_chaindp_tpu.cli", "--idx-no-seq",
-         "-d", mmi, os.path.join(REF_TEST_DIR, "MT-human.fa")],
+         "-d", mmi, ref_input("MT-human.fa")],
         capture_output=True, check=True, cwd="/root/repo", env=env)
     r = subprocess.run(
         [sys.executable, "-m", "minimap2_chaindp_tpu.cli", "-a", mmi,
-         os.path.join(REF_TEST_DIR, "MT-orang.fa")],
+         ref_input("MT-orang.fa")],
         capture_output=True, text=True, cwd="/root/repo", env=env)
     assert r.returncode == 1
     assert "doesn't contain sequences" in r.stderr
@@ -301,16 +301,16 @@ def test_cli_mmi_hpc_roundtrip(tmp_path):
     mmi = str(tmp_path / "hpc.mmi")
     subprocess.run(
         [sys.executable, "-m", "minimap2_chaindp_tpu.cli", "-x", "map-pb",
-         "-d", mmi, os.path.join(REF_TEST_DIR, "MT-human.fa")],
+         "-d", mmi, ref_input("MT-human.fa")],
         capture_output=True, check=True, cwd="/root/repo", env=env)
     a = subprocess.run(
         [sys.executable, "-m", "minimap2_chaindp_tpu.cli", "-ax", "map-pb",
-         "--device", "host", mmi, os.path.join(REF_TEST_DIR, "MT-orang.fa")],
+         "--device", "host", mmi, ref_input("MT-orang.fa")],
         capture_output=True, text=True, check=True, cwd="/root/repo", env=env)
     b = subprocess.run(
         [sys.executable, "-m", "minimap2_chaindp_tpu.cli", "-ax", "map-pb",
-         "--device", "host", os.path.join(REF_TEST_DIR, "MT-human.fa"),
-         os.path.join(REF_TEST_DIR, "MT-orang.fa")],
+         "--device", "host", ref_input("MT-human.fa"),
+         ref_input("MT-orang.fa")],
         capture_output=True, text=True, check=True, cwd="/root/repo", env=env)
     strip = lambda t: [l for l in t.rstrip("\n").split("\n")
                        if not l.startswith("@PG")]
@@ -327,14 +327,14 @@ def test_cli_stdin_query():
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     base = subprocess.run(
         [sys.executable, "-m", "minimap2_chaindp_tpu.cli", "-a",
-         "--device", "host", os.path.join(REF_TEST_DIR, "MT-human.fa"),
-         os.path.join(REF_TEST_DIR, "MT-orang.fa")],
+         "--device", "host", ref_input("MT-human.fa"),
+         ref_input("MT-orang.fa")],
         capture_output=True, text=True, check=True, cwd="/root/repo", env=env)
-    raw = open(os.path.join(REF_TEST_DIR, "MT-orang.fa"), "rb").read()
+    raw = open(ref_input("MT-orang.fa"), "rb").read()
     for payload in (raw, _gz.compress(raw)):
         out = subprocess.run(
             [sys.executable, "-m", "minimap2_chaindp_tpu.cli", "-a",
-             "--device", "host", os.path.join(REF_TEST_DIR, "MT-human.fa"),
+             "--device", "host", ref_input("MT-human.fa"),
              "-"],
             input=payload, capture_output=True, check=True,
             cwd="/root/repo", env=env)
@@ -350,8 +350,8 @@ def test_device_index_build_bit_identical():
     from minimap2_chaindp_tpu.index.build import build_index
     from minimap2_chaindp_tpu.io.fastx import read_fastx
     import numpy as np
-    refs = list(read_fastx(os.path.join(REF_TEST_DIR, "MT-human.fa")))
-    refs += list(read_fastx(os.path.join(REF_TEST_DIR, "MT-orang.fa")))
+    refs = list(read_fastx(ref_input("MT-human.fa")))
+    refs += list(read_fastx(ref_input("MT-orang.fa")))
     names = [r.name for r in refs]
     seqs = [r.seq for r in refs]
     host = build_index(names, seqs, 10, 15, 0, 14, device=False)
@@ -432,7 +432,7 @@ def test_mappy_paired_end_mm_map_aux():
     as-given, so proper pairs could never form)."""
     from minimap2_chaindp_tpu import mappy as mp
     from minimap2_chaindp_tpu import constants as C
-    a = mp.Aligner("/root/reference/test/MT-human.fa", preset="sr")
+    a = mp.Aligner(ref_input("MT-human.fa"), preset="sr")
     r1 = a.seq("MT_human", 2000, 2100)
     r2 = C.revcomp_str(a.seq("MT_human", 2200, 2300))
     hits = sorted(a.map(r1, r2), key=lambda h: h.read_num)
@@ -448,7 +448,7 @@ def test_mappy_seq_bounds():
     return None; end is clamped (previously a negative start leaked the
     PRECEDING contig's bases)."""
     from minimap2_chaindp_tpu import mappy as mp
-    a = mp.Aligner("/root/reference/test/MT-human.fa", preset="sr")
+    a = mp.Aligner(ref_input("MT-human.fa"), preset="sr")
     ln = a._mi.seqs[0].length
     assert a.seq("nope") is None
     assert a.seq("MT_human", -3, 5) is None

@@ -6,10 +6,7 @@ fallback) and the buffer-grow protocol."""
 import numpy as np
 import pytest
 
-from conftest import REF_TEST_DIR
 from minimap2_chaindp_tpu import constants as C
-from minimap2_chaindp_tpu.index.build import build_index
-from minimap2_chaindp_tpu.io.fastx import read_fastx
 from minimap2_chaindp_tpu.options import set_opt
 
 
@@ -20,15 +17,11 @@ class R:
 
 
 @pytest.fixture(scope="module")
-def mt():
-    import os
-    io_, mo = set_opt("map-ont")
+def mt(seeded):
+    """map-ont index of the seeded genome, plus its first contig."""
+    mi, mo = seeded.index("map-ont")
     mo.flag |= C.MM_F_OUT_SAM | C.MM_F_CIGAR
-    refs = list(read_fastx(os.path.join(REF_TEST_DIR, "MT-human.fa")))
-    mi = build_index([r.name for r in refs], [r.seq for r in refs],
-                     io_.w, io_.k, io_.flag, io_.bucket_bits)
-    mo.update(mi)
-    return mi, mo, refs[0].seq
+    return mi, mo, seeded.contig(0)
 
 
 def _sim(seq, n, length, err, seed, prefix="b"):

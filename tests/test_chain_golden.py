@@ -6,7 +6,7 @@ import os
 import numpy as np
 import pytest
 
-from conftest import GOLDEN_DIR, REF_TEST_DIR
+from conftest import GOLDEN_DIR, ref_input
 from minimap2_chaindp_tpu import constants as C
 from minimap2_chaindp_tpu.options import IndexOptions, MapOptions, set_opt
 from minimap2_chaindp_tpu.io.fastx import read_fastx
@@ -59,8 +59,8 @@ def cn_lines(mi, regs, a):
 def check_against(golden_file, ref_fa, query_fa, qname=None):
     with open(os.path.join(GOLDEN_DIR, golden_file)) as f:
         golden = [l.rstrip("\n") for l in f if l.startswith("CN")]
-    out = run_to_chains(os.path.join(REF_TEST_DIR, ref_fa),
-                        os.path.join(REF_TEST_DIR, query_fa), qname)
+    out = run_to_chains(ref_input(ref_fa),
+                        ref_input(query_fa), qname)
     mine = []
     for name in out:
         mi, regs, a = out[name]

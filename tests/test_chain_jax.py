@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from conftest import REF_TEST_DIR
+from conftest import ref_input
 from minimap2_chaindp_tpu.options import set_opt
 from minimap2_chaindp_tpu.io.fastx import read_fastx
 from minimap2_chaindp_tpu.index.build import build_index
@@ -13,12 +13,12 @@ from minimap2_chaindp_tpu.ops.chain_jax import chain_dp_device
 
 def anchors_for(ref_fa, query_fa, preset=None):
     io, mo = set_opt(preset)
-    refs = list(read_fastx(f"{REF_TEST_DIR}/{ref_fa}"))
+    refs = list(read_fastx(ref_input(ref_fa)))
     mi = build_index([r.name for r in refs], [r.seq for r in refs],
                      io.w, io.k, io.flag, io.bucket_bits)
     mo.update(mi)
     out = []
-    for q in read_fastx(f"{REF_TEST_DIR}/{query_fa}"):
+    for q in read_fastx(ref_input(query_fa)):
         mv = collect_minimizers(mo, mi, [q.seq])
         sh = collect_seed_hits(mi, mo.flag, mo.mid_occ, mv, q.name, len(q.seq))
         out.append((sh.anchors, mo))
@@ -42,6 +42,21 @@ def test_chain_jax_mt():
 def test_chain_jax_inv():
     for anchors, mo in anchors_for("t-inv.fa", "q-inv.fa"):
         check_equal(anchors, mo)
+
+
+def test_chain_jax_seeded(seeded):
+    """Seeded genome and reads (conftest): per-read JAX scan vs the host
+    golden model."""
+    mi, mo = seeded.index(None)
+    n = 0
+    for q in list(read_fastx(seeded.reads))[:6]:
+        mv = collect_minimizers(mo, mi, [q.seq])
+        sh = collect_seed_hits(mi, mo.flag, mo.mid_occ, mv, q.name,
+                               len(q.seq))
+        if len(sh.anchors):
+            check_equal(sh.anchors, mo)
+            n += 1
+    assert n >= 4
 
 
 def test_chain_jax_random():

@@ -4,7 +4,7 @@ import os
 
 import pytest
 
-from conftest import GOLDEN_DIR, REF_TEST_DIR
+from conftest import GOLDEN_DIR, ref_input
 from minimap2_chaindp_tpu import constants as C
 from minimap2_chaindp_tpu.options import set_opt
 from minimap2_chaindp_tpu.io.fastx import read_fastx
@@ -16,14 +16,14 @@ from minimap2_chaindp_tpu.models.pipeline import map_fragment_output
 def run_pipeline(ref_fa, query_fa, flags):
     io, mo = set_opt(None)
     mo.flag |= flags
-    refs = list(read_fastx(os.path.join(REF_TEST_DIR, ref_fa)))
+    refs = list(read_fastx(ref_input(ref_fa)))
     mi = build_index([r.name for r in refs], [r.seq for r in refs],
                      io.w, io.k, io.flag, io.bucket_bits)
     mo.update(mi)
     lines = []
     if flags & C.MM_F_OUT_SAM:
         lines.extend(write_sam_hdr(mi, None, "2.10-r761", None).split("\n"))
-    for q in read_fastx(os.path.join(REF_TEST_DIR, query_fa)):
+    for q in read_fastx(ref_input(query_fa)):
         lines.extend(map_fragment_output(mi, mo, [q]))
     return lines
 

@@ -8,6 +8,8 @@ import os
 import numpy as np
 import pytest
 
+from conftest import ref_input
+
 from minimap2_chaindp_tpu.hits import Region, Extra, set_mapq, select_sub
 from minimap2_chaindp_tpu.pe import select_sub_multi
 
@@ -436,8 +438,7 @@ def test_est_err_vs_oracle():
     from minimap2_chaindp_tpu.hits import gen_regs
     from minimap2_chaindp_tpu.esterr import est_err
 
-    refs = list(read_fastx(os.path.join("/root/reference/test",
-                                        "MT-human.fa")))
+    refs = list(read_fastx(ref_input("MT-human.fa")))
     io_, mo = set_opt("map-ont")
     mi = build_index([r.name for r in refs], [r.seq for r in refs],
                      io_.w, io_.k, io_.flag, io_.bucket_bits)

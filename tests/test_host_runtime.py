@@ -1,9 +1,9 @@
 """HostRuntime (batched host mapping, models/host_runtime.py) must produce
 byte-identical output to the per-fragment host pipeline — the same identity
 the device runtime asserts, here for the no-device wave-batched path."""
-import os
+import pytest
 
-from conftest import REF_TEST_DIR
+from conftest import ref_input
 from minimap2_chaindp_tpu import constants as C
 from minimap2_chaindp_tpu.options import set_opt
 from minimap2_chaindp_tpu.io.fastx import Frag, read_fastx
@@ -15,7 +15,7 @@ from minimap2_chaindp_tpu.models.pipeline import map_fragment_output
 def _build(ref_fa, preset=None, extra_flags=0):
     io, mo = set_opt(preset)
     mo.flag |= C.MM_F_OUT_SAM | C.MM_F_CIGAR | extra_flags
-    refs = list(read_fastx(os.path.join(REF_TEST_DIR, ref_fa)))
+    refs = list(read_fastx(ref_input(ref_fa)))
     mi = build_index([r.name for r in refs], [r.seq for r in refs],
                      io.w, io.k, io.flag, io.bucket_bits)
     mo.update(mi)
@@ -29,23 +29,31 @@ def _identity(mi, mo, frags):
     assert batched == serial
 
 
+@pytest.mark.parametrize("preset", [None, "map-pb", "map-ont"])
+def test_seeded_identity(seeded, preset):
+    """Seeded genome and reads (conftest) under three presets."""
+    mi, mo = seeded.index(preset)
+    mo.flag |= C.MM_F_OUT_SAM | C.MM_F_CIGAR
+    _identity(mi, mo, seeded.frags())
+
+
 def test_mt_identity():
     mi, mo = _build("MT-human.fa")
     frags = [Frag([q]) for q in
-             read_fastx(os.path.join(REF_TEST_DIR, "MT-orang.fa"))]
+             read_fastx(ref_input("MT-orang.fa"))]
     _identity(mi, mo, frags)
 
 
 def test_inv_identity():
     mi, mo = _build("t-inv.fa")
     frags = [Frag([q]) for q in
-             read_fastx(os.path.join(REF_TEST_DIR, "q-inv.fa"))]
+             read_fastx(ref_input("q-inv.fa"))]
     _identity(mi, mo, frags)
 
 
 def test_map_stream_order():
     mi, mo = _build("t2.fa")
-    qs = list(read_fastx(os.path.join(REF_TEST_DIR, "q2.fa")))
+    qs = list(read_fastx(ref_input("q2.fa")))
     frags = [Frag([q]) for q in qs]
     rt = HostRuntime(mi, mo)
     batches = [frags, frags]

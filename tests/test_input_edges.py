@@ -5,7 +5,7 @@ N) while emitting SEQ as-given (format.c:226 reads the raw bytes)."""
 import os
 import random
 
-from conftest import GOLDEN_DIR, REF_TEST_DIR
+from conftest import GOLDEN_DIR, ref_input
 from minimap2_chaindp_tpu import constants as C
 from minimap2_chaindp_tpu.options import set_opt
 from minimap2_chaindp_tpu.io.fastx import SeqRecord, read_fastx
@@ -16,7 +16,7 @@ from minimap2_chaindp_tpu.models.pipeline import map_fragment_output
 def _map_one(query: SeqRecord):
     io, mo = set_opt(None)
     mo.flag |= C.MM_F_OUT_SAM | C.MM_F_CIGAR
-    refs = list(read_fastx(os.path.join(REF_TEST_DIR, "MT-human.fa")))
+    refs = list(read_fastx(ref_input("MT-human.fa")))
     mi = build_index([r.name for r in refs], [r.seq for r in refs],
                      io.w, io.k, io.flag, io.bucket_bits)
     mo.update(mi)
@@ -33,7 +33,7 @@ def test_lowercase_query_matches_golden_modulo_seq_case():
     """Soft-masked input: mapping identical to the uppercase golden; the
     SAM SEQ column carries the original (lower) case, like the
     reference's raw-byte emission."""
-    q = next(iter(read_fastx(os.path.join(REF_TEST_DIR, "MT-orang.fa"))))
+    q = next(iter(read_fastx(ref_input("MT-orang.fa"))))
     lines = _map_one(SeqRecord(q.name, q.seq.lower()))
     got = [l.split("\t") for l in lines]
     want = [l.split("\t") for l in _golden_mt_records()]
@@ -47,7 +47,7 @@ def test_iupac_codes_map_like_n():
     """Every IUPAC ambiguity code is seq_nt4 code 4 — positionally
     indistinguishable from N; only SEQ (and the MD/cs tags, which
     re-fetch query bytes) may differ."""
-    q = next(iter(read_fastx(os.path.join(REF_TEST_DIR, "MT-orang.fa"))))
+    q = next(iter(read_fastx(ref_input("MT-orang.fa"))))
     random.seed(3)
     pos = sorted(random.sample(range(len(q.seq)), 200))
     iupac = "RYSWKMBDHV"

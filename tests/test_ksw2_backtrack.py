@@ -1,63 +1,6 @@
-"""The on-chip backtrack walker must produce exactly the host-decoded
-CIGARs (same p bytes, same state machine, same aliasing)."""
+"""CIGAR decoding of backtrack step codes (ops/ksw2.decode_cigar and its
+native twin) against the ksw_backtrack state mapping."""
 import numpy as np
-import pytest
-
-from minimap2_chaindp_tpu.ops import ksw2 as K
-from minimap2_chaindp_tpu.ops import ksw2_pallas as KP
-
-
-def _cmp(jobs, scoring=(4, 2, 24, 1, 2, 4)):
-    q, e, q2, e2, a, b = scoring
-    mat = K.gen_simple_mat(5, a, b)
-    host = KP.extd2_batch(jobs, mat, q, e, q2, e2, interpret=True,
-                          backtrack="host")
-    dev = KP.extd2_batch(jobs, mat, q, e, q2, e2, interpret=True,
-                         backtrack="device")
-    for j, (h, d) in enumerate(zip(host, dev)):
-        assert (h.score, h.zdropped, h.reach_end) == \
-            (d.score, d.zdropped, d.reach_end), f"job {j}"
-        assert h.cigar == d.cigar, (f"job {j} flag={jobs[j]['flag']}\n"
-                                    f"host={h.cigar}\ndev ={d.cigar}")
-
-
-@pytest.mark.slow
-def test_backtrack_device_extd2():
-    import sys
-    sys.path.insert(0, "/root/repo/tests")
-    from test_ksw2_pallas import gen_jobs
-    _cmp(gen_jobs(0, 16))
-
-
-@pytest.mark.slow
-def test_backtrack_device_extd2_small_and_zdrop():
-    import sys
-    sys.path.insert(0, "/root/repo/tests")
-    from test_ksw2_pallas import gen_jobs, mut
-    rng = np.random.default_rng(9)
-    jobs = gen_jobs(5, 4, tlen_rng=(10, 60))
-    t = rng.integers(0, 4, 400).astype(np.uint8)
-    jobs.append(dict(qseq=rng.integers(0, 4, 380).astype(np.uint8), tseq=t,
-                     w=100, zdrop=100, end_bonus=-1,
-                     flag=K.KSW_EZ_EXTZ_ONLY))
-    _cmp(jobs)
-
-
-@pytest.mark.slow
-def test_backtrack_device_exts2():
-    import sys
-    sys.path.insert(0, "/root/repo/tests")
-    from test_ksw2_splice_pallas import gen_jobs as gen_splice
-    jobs = gen_splice(2, 8)
-    q, e, q2, noncan = 2, 1, 32, 9
-    mat = K.gen_simple_mat(5, 1, 2)
-    host = KP.exts2_batch(jobs, mat, q, e, q2, noncan, interpret=True,
-                          backtrack="host")
-    dev = KP.exts2_batch(jobs, mat, q, e, q2, noncan, interpret=True,
-                         backtrack="device")
-    for j, (h, d) in enumerate(zip(host, dev)):
-        assert h.cigar == d.cigar, f"job {j}"
-        assert h.score == d.score
 
 
 def test_decode_cigar_state_mapping():
@@ -65,7 +8,7 @@ def test_decode_cigar_state_mapping():
     0->M, 1->D, 2->I, 3->N(splice)/D, and the dual-affine long-gap
     insertion state 4 -> I (a previous decode mapped 4 to D, corrupting
     every CIGAR whose optimal path used the second gap profile)."""
-    from minimap2_chaindp_tpu.ops.ksw2_backtrack import decode_cigar
+    from minimap2_chaindp_tpu.ops.ksw2 import decode_cigar
 
     def rle(cig):
         return [(c >> 4, "MIDN"[c & 0xF]) for c in cig]
@@ -90,25 +33,3 @@ def test_decode_cigar_state_mapping():
     # without splice, 3 is the long-gap DELETION
     got3 = decode_cigar(ops2, len(ops2), -1, -1, False, 0)
     assert rle(got3) == [(1, "M"), (2, "D"), (1, "M")]
-
-
-@pytest.mark.slow
-def test_backtrack_device_long_gaps():
-    """Gaps beyond the dual-affine crossover ((q2-q)/(e-e2) = 20 with the
-    default scoring) walk through states 3/4; device and host CIGARs must
-    agree (the decode previously emitted D for the long-insertion state)."""
-    rng = np.random.default_rng(17)
-    t = rng.integers(0, 4, 200).astype(np.uint8)
-    # query = target with a 30-bp insertion at 90 and a 30-bp deletion at 150
-    ins = rng.integers(0, 4, 30).astype(np.uint8)
-    q = np.concatenate([t[:90], ins, t[90:150], t[180:]]).astype(np.uint8)
-    jobs = [dict(qseq=q, tseq=t, w=80, zdrop=400, end_bonus=-1, flag=0)]
-    _cmp(jobs)
-    # and against the golden model outright: the known-good alignment is
-    # 88M30I62M30D20M (both gaps through the second affine profile)
-    mat = K.gen_simple_mat(5, 2, 4)
-    ez = K.extd2(q, t, mat, 4, 2, 24, 1, 80, 400, -1, 0)
-    dev = KP.extd2_batch(jobs, mat, 4, 2, 24, 1, interpret=True,
-                         backtrack="device")[0]
-    assert ez.score == dev.score
-    assert list(ez.cigar) == list(dev.cigar)

@@ -1,19 +1,14 @@
-"""Two-lane share controller + persisted link state (round-3 contract:
-`--device tpu` never loses to host-only — the controller must converge from
-measured rates, retire a losing lane, persist the verdict, and parole it
-when the link recovers)."""
-import importlib
-import os
+"""Two-lane share controller + persisted link state (contract: the
+calibrated device route never loses to host-only — the controller must
+converge from measured rates, retire a losing lane, persist the verdict,
+and parole it when the link recovers)."""
 import time
 
 import pytest
 
-from conftest import REF_TEST_DIR
 from minimap2_chaindp_tpu import constants as C
-from minimap2_chaindp_tpu.index.build import build_index
-from minimap2_chaindp_tpu.io.fastx import Frag, read_fastx
+from minimap2_chaindp_tpu.io.fastx import Frag
 from minimap2_chaindp_tpu.models.runtime import DeviceRuntime
-from minimap2_chaindp_tpu.options import set_opt
 from minimap2_chaindp_tpu.utils import link_state
 
 
@@ -24,14 +19,13 @@ def state_file(tmp_path, monkeypatch):
     return p
 
 
-def _runtime():
-    io, mo = set_opt(None)
-    mo.flag |= C.MM_F_OUT_SAM | C.MM_F_CIGAR
-    refs = list(read_fastx(os.path.join(REF_TEST_DIR, "MT-human.fa")))
-    mi = build_index([r.name for r in refs], [r.seq for r in refs],
-                     io.w, io.k, io.flag, io.bucket_bits)
-    mo.update(mi)
-    return mi, mo
+@pytest.fixture
+def _runtime(seeded):
+    def make():
+        mi, mo = seeded.index(None)
+        mo.flag |= C.MM_F_OUT_SAM | C.MM_F_CIGAR
+        return mi, mo
+    return make
 
 
 def test_state_roundtrip_and_ttl(state_file):
@@ -53,10 +47,9 @@ def test_state_disabled_by_empty_env(monkeypatch, tmp_path):
     assert link_state.load() == {}
 
 
-def test_adopt_persisted_share_and_retirement(state_file):
+def test_adopt_persisted_share_and_retirement(state_file, _runtime, seeded):
     mi, mo = _runtime()
-    frags = [Frag([q]) for q in
-             read_fastx(os.path.join(REF_TEST_DIR, "MT-orang.fa"))]
+    frags = seeded.frags()
     # persisted learned share for this workload's read-length bucket
     import numpy as np
     lens = [len(s.seq) for f in frags[:64] for s in f.segs]
@@ -64,7 +57,7 @@ def test_adopt_persisted_share_and_retirement(state_file):
     link_state.save({f"share:{wkey}": {"share": 0.42, "mbps": 20.0,
                                        "t": time.time()}})
     rt = DeviceRuntime(mi, mo)
-    rt._interpret = False    # exercise the real adoption path
+    rt._on_cpu = False    # exercise the real adoption path
     rt.link_mbps = 20.0
     rt._adopt_state(frags)
     assert rt._flow_share == pytest.approx(0.42)
@@ -73,14 +66,14 @@ def test_adopt_persisted_share_and_retirement(state_file):
     # a fresh retirement verdict on a similar link turns the lane off
     link_state.save({f"retired:{wkey}": {"mbps": 20.0, "t": time.time()}})
     rt2 = DeviceRuntime(mi, mo)
-    rt2._interpret = False
+    rt2._on_cpu = False
     rt2.link_mbps = 20.0
     rt2._adopt_state(frags)
     assert rt2._retired and not rt2.device_flow
 
     # parole: a 2x-better probed link ignores the stale verdict
     rt3 = DeviceRuntime(mi, mo)
-    rt3._interpret = False
+    rt3._on_cpu = False
     rt3.link_mbps = 50.0
     rt3._adopt_state(frags)
     assert not rt3._retired and rt3.device_flow
@@ -89,20 +82,19 @@ def test_adopt_persisted_share_and_retirement(state_file):
     link_state.save({f"retired:{wkey}": {
         "mbps": 20.0, "t": time.time() - link_state.RETIRE_TTL_S - 1}})
     rt4 = DeviceRuntime(mi, mo)
-    rt4._interpret = False
+    rt4._on_cpu = False
     rt4.link_mbps = 20.0
     rt4._adopt_state(frags)
     assert not rt4._retired and rt4.device_flow
 
 
-def test_host_delegation_when_probe_rejects(state_file):
-    """A runtime whose link probe said no must route batches through the
+def test_host_delegation_when_probe_rejects(state_file, _runtime, seeded):
+    """A runtime whose link measurement said no must route batches through the
     HostRuntime path (structural parity with --device host) and still
     produce identical output."""
     from minimap2_chaindp_tpu.models.pipeline import map_fragment_output
     mi, mo = _runtime()
-    frags = [Frag([q]) for q in
-             read_fastx(os.path.join(REF_TEST_DIR, "MT-orang.fa"))]
+    frags = seeded.frags()
     rt = DeviceRuntime(mi, mo)
     rt.device_flow = False
     rt._probe_chose_off = True
@@ -119,26 +111,37 @@ def test_host_delegation_when_probe_rejects(state_file):
     assert not rt2._host_delegate_ok()
 
 
-def test_min_run_gate(state_file):
-    """A run engages the device lane only after the min-run ripeness
-    window (the process's first device round trip can stall for minutes,
-    which a short run cannot amortize); interpret mode and an engaged
-    controller are always ripe."""
-    import time
+def test_calibrate_measures_link_in_process(state_file, _runtime,
+                                             monkeypatch):
+    """Off the CPU backend the startup calibration measures the link in
+    this process (no child opens the device), persists the figure, and a
+    later runtime reuses it without measuring again."""
+    from minimap2_chaindp_tpu.models import runtime as R
+    calls = []
+
+    def _fake_measure():
+        calls.append(1)
+        return 123.0
+
+    monkeypatch.setattr(R, "_measure_d2h_mbps", _fake_measure)
+    monkeypatch.setenv("MM2TPU_FLOW_MIN_MBPS", "50")
+    R._PROBE_MEM.clear()
     mi, mo = _runtime()
     rt = DeviceRuntime(mi, mo)
-    assert rt._flow_ripe()          # interpret (CPU tests): always ripe
-    rt._interpret = False
-    rt._t_first_map = time.time()
-    assert not rt._flow_ripe()      # fresh run: not ripe
-    rt._t_first_map = time.time() - 1e4
-    assert rt._flow_ripe()          # long-running: ripe
-    rt._t_first_map = time.time()
-    rt._ctrl_updates = 1
-    assert rt._flow_ripe()          # already engaged: stays engaged
+    rt._on_cpu = False
+    assert rt._calibrate() == (True, 123.0)
+    assert calls == [1]
+    assert link_state.load()["probe"]["mbps"] == 123.0
+    rt2 = DeviceRuntime(mi, mo)
+    rt2._on_cpu = False
+    monkeypatch.setenv("MM2TPU_FLOW_MIN_MBPS", "500")
+    assert rt2._calibrate() == (False, 123.0)   # cached figure, new bar
+    assert calls == [1]
+    R._PROBE_MEM.clear()
 
 
-def test_oversized_reads_take_fast_path(state_file, monkeypatch):
+def test_oversized_reads_take_fast_path(state_file, monkeypatch, _runtime,
+                                        seeded):
     """Reads beyond the flow's buckets (~21 kb) must ride the native fast
     path in device mode, not strand on the staged Python align — and the
     adaptive device share must never claim them (they are not
@@ -150,15 +153,14 @@ def test_oversized_reads_take_fast_path(state_file, monkeypatch):
     if not map_unit_ok(mo, mi):
         pytest.skip("no native lib")
     rng = np.random.default_rng(8)
-    refs = list(read_fastx(os.path.join(REF_TEST_DIR, "MT-human.fa")))
-    ref = refs[0].seq
-    # a "50 kb" read made of tiled MT segments (MT is 16.5 kb)
-    seq = (ref * 4)[:50000]
-    frags = [Frag([type(refs[0])("big", seq)])]
+    from minimap2_chaindp_tpu.io.fastx import SeqRecord
+    ref = seeded.contig(0)
+    # a 50 kb read
+    frags = [Frag([SeqRecord("big", ref[100_000:150_000])])]
     # plus normal fast-path reads
     for i in range(4):
         st = int(rng.integers(0, len(ref) - 1000))
-        frags.append(Frag([type(refs[0])(f"s{i}", ref[st:st + 1000])]))
+        frags.append(Frag([SeqRecord(f"s{i}", ref[st:st + 1000])]))
     rt = DeviceRuntime(mi, mo)
     rt._flow_share = 0.9          # aggressive device share
     out = rt.map_batch(frags)
@@ -169,14 +171,14 @@ def test_oversized_reads_take_fast_path(state_file, monkeypatch):
     assert [l for ls in out for l in ls] == [l for ls in host for l in ls]
 
 
-def test_controller_converges_and_retires(state_file):
+def test_controller_converges_and_retires(state_file, _runtime):
     """Drive the real controller: (a) measured rates override the seed and
     converge toward dev_rate/(dev+host); (b) two consecutive ~zero-target
     sub-rounds retire the lane and persist the verdict for the workload
     key; (c) a winning lane is never retired."""
     mi, mo = _runtime()
     rt = DeviceRuntime(mi, mo)
-    rt._interpret = False
+    rt._on_cpu = False
     rt._wkey = "rl10"
     rt.link_mbps = 3.0
     rt._flow_share = 0.5  # badly mis-seeded

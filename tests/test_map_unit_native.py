@@ -9,7 +9,6 @@ import numpy as np
 import pytest
 
 sys.path.insert(0, os.path.dirname(__file__))
-from conftest import REF_TEST_DIR
 
 from minimap2_chaindp_tpu import constants as C
 from minimap2_chaindp_tpu import native
@@ -48,12 +47,10 @@ def _simulate(ref_seq, n, read_len, err, seed):
 
 
 @pytest.fixture(scope="module")
-def mt_index():
-    refs = list(read_fastx(os.path.join(REF_TEST_DIR, "MT-human.fa")))
-    io_, _ = set_opt("map-ont")
-    mi = build_index([r.name for r in refs], [r.seq for r in refs],
-                     io_.w, io_.k, io_.flag, io_.bucket_bits)
-    return refs, mi
+def mt_index(seeded):
+    """map-ont index of the seeded genome (conftest), plus its contigs."""
+    mi, _ = seeded.index("map-ont")
+    return list(read_fastx(seeded.ref)), mi
 
 
 @pytest.mark.parametrize("out_flags", [

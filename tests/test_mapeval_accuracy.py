@@ -7,7 +7,7 @@ import sys
 
 import numpy as np
 
-from conftest import REF_TEST_DIR
+from conftest import ref_input
 from minimap2_chaindp_tpu import constants as C
 from minimap2_chaindp_tpu.options import set_opt
 from minimap2_chaindp_tpu.io.fastx import read_fastx
@@ -48,7 +48,7 @@ def simulate(ref_seq, n, read_len, err, seed):
 
 
 def test_mapeval_simulated_accuracy(tmp_path):
-    refs = list(read_fastx(os.path.join(REF_TEST_DIR, "MT-human.fa")))
+    refs = list(read_fastx(ref_input("MT-human.fa")))
     io_, mo = set_opt("map-ont")
     mo.flag |= C.MM_F_OUT_CG | C.MM_F_CIGAR
     mi = build_index([r.name for r in refs], [r.seq for r in refs],

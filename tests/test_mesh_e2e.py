@@ -1,14 +1,15 @@
 """Multi-chip mesh mapping, end to end: the sharded flow step (count psum
 + capacity-bounded hit all-gather + data-parallel chaining) must produce
-byte-identical output to the single-chip flow and to the pinned reference
-golden, running over the virtual 8-device CPU mesh (conftest)."""
+byte-identical output to the single-chip flow, to the host path and to the
+pinned reference golden, running over the virtual 8-device CPU mesh
+(conftest)."""
 import os
 import subprocess
 import sys
 
 import numpy as np
 
-from conftest import GOLDEN_DIR, REF_TEST_DIR
+from conftest import GOLDEN_DIR, ref_input
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -24,32 +25,36 @@ def _cli(args, env_extra=None):
 
 def test_mesh_mt_sam_golden():
     """MT pair over --mesh 4x2 == pinned reference golden, byte for byte."""
-    got = _cli(["-a", "--device", "tpu", "--mesh", "4x2",
-                f"{REF_TEST_DIR}/MT-human.fa", f"{REF_TEST_DIR}/MT-orang.fa"])
+    got = _cli(["-a", "--device", "gpu", "--mesh", "4x2",
+                ref_input("MT-human.fa"), ref_input("MT-orang.fa")])
     with open(os.path.join(GOLDEN_DIR, "mt.sam")) as f:
         want = [l for l in f.read().split("\n") if not l.startswith("@PG")]
     assert got == want
 
 
-def test_mesh_matches_single_chip_flow():
+def test_mesh_seeded_matches_host(seeded):
+    """Seeded genome and reads over --mesh 2x4 (index key-range-sharded 4
+    ways) == --device host, byte for byte, through the CLI."""
+    got = _cli(["-ax", "map-pb", "--device", "gpu", "--mesh", "2x4",
+                seeded.ref, seeded.reads])
+    want = _cli(["-ax", "map-pb", "--device", "host", seeded.ref,
+                 seeded.reads])
+    assert sum(1 for l in want if l and not l.startswith("@")) >= 48
+    assert got == want
+
+
+def test_mesh_matches_single_chip_flow(seeded):
     """Sharded flow vs single-chip flow on simulated reads (both through
-    DeviceFlow.run, interpret mode): identical Chains and SeedHits."""
-    from minimap2_chaindp_tpu.io.fastx import read_fastx
-    from minimap2_chaindp_tpu.options import set_opt
-    from minimap2_chaindp_tpu.index.build import build_index
+    DeviceFlow.run on the CPU backend): identical Chains and SeedHits."""
     from minimap2_chaindp_tpu.models.pipeline import seed_unit
     from minimap2_chaindp_tpu.models.device_flow import DeviceFlow
     from minimap2_chaindp_tpu.utils.timers import Timers
     import jax
     from jax.sharding import Mesh
 
-    io_, mo = set_opt("map-ont")
-    refs = list(read_fastx(f"{REF_TEST_DIR}/MT-human.fa"))
-    mi = build_index([r.name for r in refs], [r.seq for r in refs],
-                     io_.w, io_.k, io_.flag, io_.bucket_bits)
-    mo.update(mi)
+    mi, mo = seeded.index("map-ont")
     rng = np.random.default_rng(9)
-    ref = refs[0].seq
+    ref = seeded.contig(0)
     comp = str.maketrans("ACGT", "TGCA")
     reads = []
     for i in range(24):
@@ -69,7 +74,7 @@ def test_mesh_matches_single_chip_flow():
         units = [([Rec(n, s)], seed_unit(mi, mo, [Rec(n, s)],
                                          collect_hits=False))
                  for n, s in reads]
-        flow = DeviceFlow(mi, mo, interpret=True, mesh=mesh)
+        flow = DeviceFlow(mi, mo, guarded=False, mesh=mesh)
         res, _cold = flow.run(units, Timers())
         return units, res
 

@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from conftest import REF_TEST_DIR
+from conftest import ref_input
 from minimap2_chaindp_tpu import native
 from minimap2_chaindp_tpu.options import set_opt
 from minimap2_chaindp_tpu.io.fastx import read_fastx
@@ -34,15 +34,40 @@ def fp_for(anchors, mo):
     return np.asarray(f)[:n], np.asarray(p)[:n], np.asarray(v)[:n]
 
 
+def _check_bottom(anchors, mo):
+    f, p, v = fp_for(anchors, mo)
+    cx, cy, cf, cp = compact_from_fpv(anchors, f, p, v, mo.min_chain_score)
+    py = chain_backtrack(cx, cy, cf, cp, mo.min_cnt, mo.min_chain_score)
+    nat = native.chain_bottom_native(anchors, f, p, mo.min_cnt,
+                                     mo.min_chain_score)
+    assert np.array_equal(py.u, nat.u)
+    assert np.array_equal(py.anchors, nat.anchors)
+
+
+def test_native_matches_python_seeded(seeded):
+    """Seeded genome and reads (conftest): native bottom half vs the
+    Python compact + backtrack on the same f/p/v."""
+    mi, mo = seeded.index(None)
+    n = 0
+    for q in list(read_fastx(seeded.reads))[:8]:
+        mv = collect_minimizers(mo, mi, [q.seq])
+        sh = collect_seed_hits(mi, mo.flag, mo.mid_occ, mv, q.name,
+                               len(q.seq))
+        if len(sh.anchors):
+            _check_bottom(sh.anchors, mo)
+            n += 1
+    assert n >= 6
+
+
 def test_native_matches_python():
     io, mo = set_opt(None)
-    refs = list(read_fastx(f"{REF_TEST_DIR}/MT-human.fa"))
+    refs = list(read_fastx(ref_input("MT-human.fa")))
     mi = build_index([r.name for r in refs], [r.seq for r in refs],
                      io.w, io.k, io.flag, io.bucket_bits)
     mo.update(mi)
-    qs = list(read_fastx(f"{REF_TEST_DIR}/MT-orang.fa"))
-    qs += list(read_fastx(f"{REF_TEST_DIR}/q-inv.fa"))
-    mi2 = build_index(["t"], [next(read_fastx(f"{REF_TEST_DIR}/t-inv.fa")).seq],
+    qs = list(read_fastx(ref_input("MT-orang.fa")))
+    qs += list(read_fastx(ref_input("q-inv.fa")))
+    mi2 = build_index(["t"], [next(read_fastx(ref_input("t-inv.fa"))).seq],
                       io.w, io.k, io.flag, io.bucket_bits)
     for q, midx in [(qs[0], mi), (qs[1], mi2), (qs[2], mi2)]:
         mv = collect_minimizers(mo, midx, [q.seq])

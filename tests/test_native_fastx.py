@@ -5,7 +5,7 @@ import os
 
 import pytest
 
-from conftest import REF_TEST_DIR
+from conftest import ref_input
 from minimap2_chaindp_tpu.io import native_fastx
 from minimap2_chaindp_tpu.io.fastx import _read_fastx_py, read_fastx
 
@@ -23,7 +23,7 @@ def same(path):
 def test_reference_fastas():
     for fa in ("MT-human.fa", "MT-orang.fa", "q-inv.fa", "t-inv.fa",
                "t2.fa", "q2.fa"):
-        recs = same(os.path.join(REF_TEST_DIR, fa))
+        recs = same(ref_input(fa))
         assert recs
 
 

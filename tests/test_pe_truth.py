@@ -12,11 +12,8 @@ import os
 import numpy as np
 import pytest
 
-from conftest import REF_TEST_DIR
 from minimap2_chaindp_tpu import constants as C
-from minimap2_chaindp_tpu.index.build import build_index
-from minimap2_chaindp_tpu.io.fastx import Frag, SeqRecord, read_fastx
-from minimap2_chaindp_tpu.options import set_opt
+from minimap2_chaindp_tpu.io.fastx import Frag, SeqRecord
 
 COMP = str.maketrans("ACGT", "TGCA")
 
@@ -56,14 +53,11 @@ def simulate_pairs(ref, n, read_len=100, insert_lo=250, insert_hi=450,
 
 
 @pytest.fixture(scope="module")
-def sr_setup():
-    io, mo = set_opt("sr")
+def sr_setup(seeded):
+    """sr index of a repeat-free seeded contig, plus its sequence."""
+    mi, mo, seq = seeded.unique_index("sr")
     mo.flag |= C.MM_F_OUT_SAM | C.MM_F_CIGAR
-    refs = list(read_fastx(os.path.join(REF_TEST_DIR, "MT-human.fa")))
-    mi = build_index([r.name for r in refs], [r.seq for r in refs],
-                     io.w, io.k, io.flag, io.bucket_bits)
-    mo.update(mi)
-    return mi, mo, refs[0].seq
+    return mi, mo, seq
 
 
 def _map_pairs(mi, mo, frags):

@@ -4,7 +4,7 @@ import os
 
 import pytest
 
-from conftest import GOLDEN_DIR, REF_TEST_DIR
+from conftest import GOLDEN_DIR, ref_input
 from minimap2_chaindp_tpu import constants as C
 from minimap2_chaindp_tpu.options import set_opt
 from minimap2_chaindp_tpu.io.fastx import read_fastx, read_frags
@@ -47,32 +47,32 @@ PAF_CG = C.MM_F_OUT_CG | C.MM_F_CIGAR
 
 
 def test_mappb_sam():
-    compare("mt.mappb.sam", "map-pb", os.path.join(REF_TEST_DIR, "MT-human.fa"),
-            [os.path.join(REF_TEST_DIR, "MT-orang.fa")], SAM)
+    compare("mt.mappb.sam", "map-pb", ref_input("MT-human.fa"),
+            [ref_input("MT-orang.fa")], SAM)
 
 
 def test_mappb_paf():
-    compare("mt.mappb.paf", "map-pb", os.path.join(REF_TEST_DIR, "MT-human.fa"),
-            [os.path.join(REF_TEST_DIR, "MT-orang.fa")], PAF_CG)
+    compare("mt.mappb.paf", "map-pb", ref_input("MT-human.fa"),
+            [ref_input("MT-orang.fa")], PAF_CG)
 
 
 def test_ava_ont():
-    compare("qinv.ava.paf", "ava-ont", os.path.join(REF_TEST_DIR, "q-inv.fa"),
-            [os.path.join(REF_TEST_DIR, "q-inv.fa")], 0)
+    compare("qinv.ava.paf", "ava-ont", ref_input("q-inv.fa"),
+            [ref_input("q-inv.fa")], 0)
 
 
 def test_sr_single_end():
-    compare("se.sr.sam", "sr", os.path.join(REF_TEST_DIR, "MT-human.fa"),
+    compare("se.sr.sam", "sr", ref_input("MT-human.fa"),
             [os.path.join(DATA, "pe_1.fq")], SAM)
 
 
 def test_sr_paired_end_paf():
-    compare("pe.sr.paf", "sr", os.path.join(REF_TEST_DIR, "MT-human.fa"),
+    compare("pe.sr.paf", "sr", ref_input("MT-human.fa"),
             [os.path.join(DATA, "pe_1.fq"), os.path.join(DATA, "pe_2.fq")], 0)
 
 
 def test_sr_paired_end_sam():
-    compare("pe.sr.sam", "sr", os.path.join(REF_TEST_DIR, "MT-human.fa"),
+    compare("pe.sr.sam", "sr", ref_input("MT-human.fa"),
             [os.path.join(DATA, "pe_1.fq"), os.path.join(DATA, "pe_2.fq")], SAM)
 
 
@@ -91,12 +91,12 @@ def test_sdust_T20_sam():
     io, mo = set_opt("map-ont")
     mo.flag |= SAM
     mo.sdust_thres = 20
-    refs = list(read_fastx(os.path.join(REF_TEST_DIR, "MT-human.fa")))
+    refs = list(read_fastx(ref_input("MT-human.fa")))
     mi = build_index([r.name for r in refs], [r.seq for r in refs],
                      io.w, io.k, io.flag, io.bucket_bits)
     mo.update(mi)
     lines = write_sam_hdr(mi, None, "2.10-r761", None).split("\n")
-    for batch in read_frags([os.path.join(REF_TEST_DIR, "MT-orang.fa")],
+    for batch in read_frags([ref_input("MT-orang.fa")],
                             mo.mini_batch_size, False):
         for frag in batch:
             lines.extend(map_fragment_output(mi, mo, frag.segs))
@@ -107,13 +107,13 @@ def test_sdust_T20_sam():
 
 
 def test_asm20_sam():
-    compare("mt.asm20.sam", "asm20", os.path.join(REF_TEST_DIR, "MT-human.fa"),
-            [os.path.join(REF_TEST_DIR, "MT-orang.fa")], SAM)
+    compare("mt.asm20.sam", "asm20", ref_input("MT-human.fa"),
+            [ref_input("MT-orang.fa")], SAM)
 
 
 def test_asm5_no_hits():
     """asm5 (<5% divergence) finds nothing on the ~13%-divergent MT pair —
     matching the reference's empty PAF."""
-    lines = run("asm5", os.path.join(REF_TEST_DIR, "MT-human.fa"),
-                [os.path.join(REF_TEST_DIR, "MT-orang.fa")], PAF_CG)
+    lines = run("asm5", ref_input("MT-human.fa"),
+                [ref_input("MT-orang.fa")], PAF_CG)
     assert lines == []

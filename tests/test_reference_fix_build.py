@@ -10,7 +10,7 @@ import subprocess
 
 import pytest
 
-from conftest import REF_TEST_DIR, GOLDEN_DIR
+from conftest import GOLDEN_DIR, ref_input
 
 ROOT = "/root/repo"
 REF_BIN = os.path.join(ROOT, ".golden", "minimap2_ref")
@@ -43,7 +43,7 @@ def test_fix_reproduces_pe_golden():
     cross-check; if a stock minimap2 v2.10 build ever becomes available,
     cross-validate pe.sr.sam against it once."""
     _ensure_fix()
-    got = _run(FIX_BIN, ["-ax", "sr", os.path.join(REF_TEST_DIR, "MT-human.fa"),
+    got = _run(FIX_BIN, ["-ax", "sr", ref_input("MT-human.fa"),
                          os.path.join(DATA, "pe_1.fq"),
                          os.path.join(DATA, "pe_2.fq")])
     with open(os.path.join(GOLDEN_DIR, "pe.sr.sam")) as f:
@@ -53,6 +53,6 @@ def test_fix_reproduces_pe_golden():
 
 def test_fix_single_end_unchanged():
     _ensure_fix()
-    args = ["-a", os.path.join(REF_TEST_DIR, "MT-human.fa"),
-            os.path.join(REF_TEST_DIR, "MT-orang.fa")]
+    args = ["-a", ref_input("MT-human.fa"),
+            ref_input("MT-orang.fa")]
     assert _run(FIX_BIN, args) == _run(REF_BIN, args)

@@ -7,7 +7,7 @@ import subprocess
 import numpy as np
 import pytest
 
-from conftest import REF_TEST_DIR
+from conftest import ref_input
 from minimap2_chaindp_tpu.sdust import sdust, dust_mask_minimizers
 
 REF_BIN = "/root/repo/.golden/sdust_ref"
@@ -72,7 +72,7 @@ def test_sdust_pure_random_mostly_clean():
 
 def test_sdust_on_reference_test_fasta():
     from minimap2_chaindp_tpu.io.fastx import read_fastx
-    recs = list(read_fastx(os.path.join(REF_TEST_DIR, "MT-orang.fa")))
+    recs = list(read_fastx(ref_input("MT-orang.fa")))
     seqs = [r.seq for r in recs]
     ref = ref_sdust(seqs)
     for s, want in zip(seqs, ref):

@@ -1,10 +1,8 @@
 """Device seed collection must be bit-identical to the host golden model
-(anchors, order, flags, rep_len, mini_pos) on bundled data."""
-import os
-
+(anchors, order, flags, rep_len, mini_pos)."""
 import numpy as np
 
-from conftest import REF_TEST_DIR
+from conftest import ref_input
 from minimap2_chaindp_tpu.options import set_opt
 from minimap2_chaindp_tpu.io.fastx import read_fastx
 from minimap2_chaindp_tpu.index.build import build_index
@@ -12,13 +10,13 @@ from minimap2_chaindp_tpu.ops.seeds import collect_minimizers, collect_seed_hits
 from minimap2_chaindp_tpu.ops.seeds_device import DeviceSeedCollector
 
 
-def check_pair(ref_fa, q_fa, preset=None):
+def check_pair(ref_path, q_path, preset=None):
     io, mo = set_opt(preset)
-    refs = list(read_fastx(os.path.join(REF_TEST_DIR, ref_fa)))
+    refs = list(read_fastx(ref_path))
     mi = build_index([r.name for r in refs], [r.seq for r in refs],
                      io.w, io.k, io.flag, io.bucket_bits)
     mo.update(mi)
-    queries = list(read_fastx(os.path.join(REF_TEST_DIR, q_fa)))
+    queries = list(read_fastx(q_path))
     mvs, qlens = [], []
     for q in queries:
         mvs.append(collect_minimizers(mo, mi, [q.seq]))
@@ -37,24 +35,24 @@ def check_pair(ref_fa, q_fa, preset=None):
     assert n_dev > 0
 
 
-def test_seeds_device_mt():
-    check_pair("MT-human.fa", "MT-orang.fa")
+def test_seeds_device_mt(seeded):
+    check_pair(seeded.ref, seeded.reads)
 
 
 def test_seeds_device_inv():
-    check_pair("t-inv.fa", "q-inv.fa")
+    check_pair(ref_input("t-inv.fa"), ref_input("q-inv.fa"))
 
 
-def test_seeds_device_hpc():
-    check_pair("MT-human.fa", "MT-orang.fa", preset="map-pb")
+def test_seeds_device_hpc(seeded):
+    check_pair(seeded.ref, seeded.reads, preset="map-pb")
 
 
-def test_seeds_device_self_map():
-    # q-inv vs itself: lots of exact multi-occurrence hits
-    check_pair("q-inv.fa", "q-inv.fa")
+def test_seeds_device_self_map(seeded):
+    # the reads against themselves: lots of exact multi-occurrence hits
+    check_pair(seeded.reads, seeded.reads)
 
 
-def test_seeds_sharded_index_collect():
+def test_seeds_sharded_index_collect(seeded):
     """Sharded-index seed collection (ops/seeds_device.shard_index_tables +
     models/device_pipeline.make_sharded_collect_step) on a 2x4 virtual mesh
     is bit-identical to the single-chip device collector: every key lives on
@@ -67,15 +65,11 @@ def test_seeds_sharded_index_collect():
     from minimap2_chaindp_tpu.models.device_pipeline import \
         make_sharded_collect_step
 
-    io, mo = set_opt(None)
-    refs = list(read_fastx(os.path.join(REF_TEST_DIR, "MT-human.fa")))
-    mi = build_index([r.name for r in refs], [r.seq for r in refs],
-                     io.w, io.k, io.flag, io.bucket_bits)
-    mo.update(mi)
-    queries = list(read_fastx(os.path.join(REF_TEST_DIR, "MT-orang.fa")))
+    mi, mo = seeded.index(None)
+    R, M, CAP = 8, 4096, 8192
+    queries = list(read_fastx(seeded.reads))[:R]
     mvs = [collect_minimizers(mo, mi, [q.seq]) for q in queries]
 
-    R, M, CAP = 8, 4096, 8192
     qhi = np.full((R, M), 0x7FFFFFFF, np.int32)
     qlo = np.zeros((R, M), np.int32)
     qvalid = np.zeros((R, M), bool)

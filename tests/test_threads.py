@@ -9,7 +9,7 @@ import sys
 import numpy as np
 import pytest
 
-from conftest import REF_TEST_DIR
+from conftest import ref_input
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
@@ -26,7 +26,7 @@ def _cli(args):
 def _simreads(path, n, read_len, seed):
     rng = np.random.default_rng(seed)
     from minimap2_chaindp_tpu.io.fastx import read_fastx
-    ref = next(read_fastx(f"{REF_TEST_DIR}/MT-human.fa")).seq
+    ref = next(read_fastx(ref_input("MT-human.fa"))).seq
     comp = str.maketrans("ACGT", "TGCA")
     with open(path, "w") as f:
         for i in range(n):
@@ -42,15 +42,23 @@ def _simreads(path, n, read_len, seed):
 def test_threads_single_end_identity(tmp_path):
     q = str(tmp_path / "q.fa")
     _simreads(q, 60, 800, seed=3)
-    ref = f"{REF_TEST_DIR}/MT-human.fa"
+    ref = ref_input("MT-human.fa")
     one = _cli(["-a", "-t", "1", ref, q])
     four = _cli(["-a", "-t", "4", ref, q])
     assert one == four
     assert len([l for l in one if l and not l.startswith("@")]) >= 50
 
 
+def test_threads_seeded_identity(seeded):
+    """-t 1 vs -t 4 on the seeded genome and reads (conftest), map-pb."""
+    one = _cli(["-ax", "map-pb", "-t", "1", seeded.ref, seeded.reads])
+    four = _cli(["-ax", "map-pb", "-t", "4", seeded.ref, seeded.reads])
+    assert one == four
+    assert len([l for l in one if l and not l.startswith("@")]) >= 48
+
+
 def test_threads_paired_end_identity():
-    ref = f"{REF_TEST_DIR}/MT-human.fa"
+    ref = ref_input("MT-human.fa")
     p1 = os.path.join(DATA, "pe_1.fq")
     p2 = os.path.join(DATA, "pe_2.fq")
     one = _cli(["-ax", "sr", "-t", "1", ref, p1, p2])
@@ -77,7 +85,7 @@ def test_threads_no_contention_tax():
 
     io, mo = set_opt(None)
     mo.flag |= C.MM_F_OUT_SAM | C.MM_F_CIGAR
-    refs = list(read_fastx(f"{REF_TEST_DIR}/MT-human.fa"))
+    refs = list(read_fastx(ref_input("MT-human.fa")))
     mi = build_index([r.name for r in refs], [r.seq for r in refs],
                      io.w, io.k, io.flag, io.bucket_bits)
     mo.update(mi)

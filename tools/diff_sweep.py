@@ -165,9 +165,9 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--quick", action="store_true")
-    ap.add_argument("--tpu", action="store_true",
-                    help="also run a case through the full TPU device "
-                         "runtime (needs an attached chip)")
+    ap.add_argument("--gpu", action="store_true",
+                    help="also run a case through the full GPU device "
+                         "runtime (needs an attached GPU)")
     ns = ap.parse_args()
     seed = ns.seed if ns.seed is not None else int.from_bytes(
         os.urandom(4), "little")
@@ -219,11 +219,11 @@ def main():
     # multi-chip mesh mapping on the virtual CPU mesh (sharded index +
     # capacity-bounded seed routing) vs the reference binary
     cases.append(("map-ont SAM (4x2 mesh)",
-                  ["-a", REF_FA, f"{d}/ont.fa"], REF_BIN, "tpu",
+                  ["-a", REF_FA, f"{d}/ont.fa"], REF_BIN, "gpu",
                   ("--mesh", "4x2")))
-    if ns.tpu:
-        cases.append(("map-ont SAM (TPU device runtime)",
-                      ["-a", REF_FA, f"{d}/ont.fa"], REF_BIN, "tpu"))
+    if ns.gpu:
+        cases.append(("map-ont SAM (GPU device runtime)",
+                      ["-a", REF_FA, f"{d}/ont.fa"], REF_BIN, "gpu"))
     got = [run_case(*c) for c in cases]
     fails = sum(g is False for g in got)
     hangs = sum(g is None for g in got)

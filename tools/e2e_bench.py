@@ -4,7 +4,7 @@ MT-human, `-a` SAM output, this framework vs the reference binary on the
 same host.
 
 Usage:
-  python tools/e2e_bench.py [--reads N] [--device tpu|host] [--profile]
+  python tools/e2e_bench.py [--reads N] [--device gpu|host] [--profile]
   python tools/e2e_bench.py --ref          # time the reference binary only
 
 The read simulator matches tests/test_mapeval_accuracy.py (10% error,
@@ -57,51 +57,13 @@ def write_reads(path, reads):
             f.write(f">{name}\n{seq}\n")
 
 
-def await_link_verdict(max_wait_s=300.0):
-    """Steady-state tpu timing only: the warmup run spawns the detached
-    link-probe child (models/runtime._start_async_probe); its jax import
-    and first-touch device wait overlap the timed repeats on a 1-core
-    host, and until its verdict lands the runtime rides the probe-pending
-    flow-off seed. Wait (bounded) for the persisted verdict so the timed
-    repeats run in the settled regime with no child competing — the same
-    startup-cost amortization the warmup already applies to index build
-    and XLA compiles. Returns the verdict mbps or None."""
-    from minimap2_chaindp_tpu.utils import link_state
-    if link_state._path() is None:
-        return None          # persistence disabled (tests): nothing to await
-    ent = link_state.load().get("probe")
-    if (isinstance(ent, dict) and not ent.get("fail")
-            and link_state.fresh(ent, link_state.PROBE_TTL_S)):
-        # a healthy verdict is already in hand (calibrate adopted it, no
-        # probe child spawned): return it so the caller's backend warmup
-        # still runs — gating only on probe_started silently skipped the
-        # warmup in exactly the engaged regime it exists for
-        return ent.get("mbps")
-    if not link_state.fresh(link_state.load().get("probe_started"), 300.0):
-        return None          # no child in flight (short runs never spawn
-    t0 = time.perf_counter()  # one — the 5 s defer outlives them)
-    while True:
-        ent = link_state.load().get("probe")
-        if isinstance(ent, dict) and link_state.fresh(
-                ent, link_state.PROBE_TTL_S / (3.0 if ent.get("fail") else 1.0)):
-            dt = time.perf_counter() - t0
-            print(f"[e2e_bench] link verdict after {dt:.0f}s wait: "
-                  f"{ent.get('mbps')} MB/s", file=sys.stderr)
-            return ent.get("mbps")
-        if time.perf_counter() - t0 > max_wait_s:
-            print(f"[e2e_bench] no link verdict within {max_wait_s:.0f}s; "
-                  "timing with probe still pending", file=sys.stderr)
-            return None
-        time.sleep(2.0)
-
-
 def main():
     global REF_FA
     ap = argparse.ArgumentParser()
     ap.add_argument("--reads", type=int, default=400)
     ap.add_argument("--len", dest="read_len", type=int, default=1000)
     ap.add_argument("--device", default="host",
-                    choices=["host", "tpu", "pair", "refpair"])
+                    choices=["host", "gpu", "pair", "refpair"])
     ap.add_argument("--preset", default="map-ont",
                     help="preset for BOTH lanes (e.g. sr for the "
                          "reference's Illumina headline regime)")
@@ -240,17 +202,14 @@ def main():
         return
 
     if args.steady and args.device == "pair":
-        # PAIRED steady-state timing: host and tpu runs INTERLEAVED
-        # run-by-run in one process (pair order alternating), so the
-        # 1-core host's bursty scheduling — measured 526-690 reads/s
-        # across back-to-back SAME-MODE sessions — hits both lanes under
-        # near-identical machine state. Deferred-client mode makes the
-        # in-process tpu runs clean: a flow-off run never initializes
-        # the device backend. Emits runN[dev] and steady[dev] lines.
-        best = {"host": None, "tpu": None}
+        # PAIRED steady-state timing: host and gpu runs INTERLEAVED
+        # run-by-run in one process (pair order alternating), so machine
+        # drift hits both lanes alike. Emits runN[dev] and steady[dev]
+        # lines.
+        best = {"host": None, "gpu": None}
         ratios = []
         for it in range(args.steady + 1):
-            order = ("host", "tpu") if it % 2 == 0 else ("tpu", "host")
+            order = ("host", "gpu") if it % 2 == 0 else ("gpu", "host")
             pair = {}
             for dev in order:
                 dt = timed_cli_run(dev)
@@ -260,26 +219,22 @@ def main():
                     pair[dev] = dt
                 print(f"run{it}[{dev}]: {args.reads / dt:8.1f} reads/s"
                       f"  ({dt:.2f}s)", file=sys.stderr)
-                if dev == "tpu":
+                if dev == "gpu":
                     # flow telemetry for THIS run (bench.py's engaged-
                     # regime fields parse it): device_reads>0 == the
                     # device lane actually carried reads
                     from minimap2_chaindp_tpu import cli as _cli
                     c = _cli.LAST_RUN_COUNTERS
-                    print(f"flow{it}[tpu]: "
+                    print(f"flow{it}[gpu]: "
                           f"device_reads={c.get('device_reads', 0)} "
-                          f"ext_lane_reads={c.get('ext_lane_reads', 0)} "
                           f"retired={c.get('flow_lane_retired', 0)} "
                           f"retired_persisted="
-                          f"{c.get('flow_lane_retired_persisted', 0)} "
-                          f"client_init="
-                          f"{c.get('flow_client_init_async', 0)} "
-                          f"stall_fallback={c.get('stall_fallback', 0)}",
+                          f"{c.get('flow_lane_retired_persisted', 0)}",
                           file=sys.stderr)
                     # steal-lane telemetry (models/steal.py): reads the
                     # device lane completed, its measured host-CPU cost,
                     # and the guard's pause/probe activity
-                    print(f"steal{it}[tpu]: "
+                    print(f"steal{it}[gpu]: "
                           f"steal_reads={c.get('steal_device_reads', 0)} "
                           f"steal_chunks={c.get('steal_chunks', 0)} "
                           f"steal_cpu_ms={c.get('steal_cpu_ms', 0)} "
@@ -292,64 +247,13 @@ def main():
                           f"steal_finish_ms="
                           f"{c.get('steal_cpu_finish_ms', 0)} "
                           f"steal_paused={c.get('steal_paused', 0)} "
-                          f"steal_probe={c.get('steal_probe', 0)} "
-                          f"steal_returned="
-                          f"{c.get('steal_stall_returned', 0)}",
+                          f"steal_probe={c.get('steal_probe', 0)}",
                           file=sys.stderr)
-                if it == 0 and dev == "tpu":
-                    mbps = await_link_verdict()
-                    if mbps and mbps >= float(os.environ.get(
-                            "MM2TPU_FLOW_MIN_MBPS", "4")):
-                        # ENGAGED-regime steady-state warmup: pay the
-                        # process's one-time backend init + first-touch
-                        # D2H stall (10 s-4 min) HERE in the warmup
-                        # iteration — same treatment index build and XLA
-                        # compiles already get — so later runs' deferred
-                        # client init completes in milliseconds and the
-                        # device lane can actually engage once ripe.
-                        # Guarded: a stall marks the device bad and the
-                        # timed runs self-describe as host-delegated.
-                        from minimap2_chaindp_tpu.utils.device_guard \
-                            import device_call
-
-                        def _warm():
-                            import jax
-                            if jax.devices()[0].platform != "cpu":
-                                import jax.numpy as jnp
-                                np.asarray(jax.block_until_ready(
-                                    jnp.arange(1 << 14, dtype=jnp.int32)))
-                                from minimap2_chaindp_tpu.utils import \
-                                    device_guard as dg
-                                dg.mark_warmed()  # timed runs engage at t=0
-                            return True
-                        t0w = time.perf_counter()
-                        try:
-                            device_call(_warm, 300.0)
-                            print(f"[e2e_bench] backend warmed in "
-                                  f"{time.perf_counter() - t0w:.0f}s",
-                                  file=sys.stderr)
-                            # shape-warm pass (untimed): one more tpu run
-                            # now that the engaged regime is live — pays
-                            # the flow's per-process jit traces, XLA
-                            # compile/cache loads and (at genome scale)
-                            # the device index upload, so the TIMED runs
-                            # measure the settled engaged regime
-                            t0s = time.perf_counter()
-                            dts = timed_cli_run("tpu")
-                            print(f"[e2e_bench] shape-warm pass "
-                                  f"{dts:.1f}s (total "
-                                  f"{time.perf_counter() - t0s:.0f}s)",
-                                  file=sys.stderr)
-                        except Exception as e:
-                            print(f"[e2e_bench] backend warmup failed "
-                                  f"({time.perf_counter() - t0w:.0f}s): "
-                                  f"{type(e).__name__}", file=sys.stderr)
             if len(pair) == 2:
                 # ADJACENT-run ratio: the two runs sit ~1 s apart and share
-                # machine state, unlike best-of-N which compares whichever
-                # runs caught the 1-core host's ~20% scheduler bursts
-                ratios.append(pair["host"] / pair["tpu"])
-        for dev in ("host", "tpu"):
+                # machine state, unlike best-of-N
+                ratios.append(pair["host"] / pair["gpu"])
+        for dev in ("host", "gpu"):
             print(f"steady[{dev}]: {args.reads / best[dev]:8.1f} reads/s"
                   f"  ({best[dev]:.2f}s)")
         if ratios:
@@ -360,8 +264,8 @@ def main():
     if args.steady:
         # steady-state in-process timing: one warmup run (pays index build,
         # native-lib load, XLA compiles, device-link calibration) then
-        # `--steady` timed repeats, best taken — the PERF.md methodology,
-        # symmetric across --device host/tpu.
+        # `--steady` timed repeats, best taken — symmetric across
+        # --device host/gpu.
         best = None
         for it in range(args.steady + 1):
             dt = timed_cli_run(args.device)
@@ -369,8 +273,6 @@ def main():
                 best = dt if best is None else min(best, dt)
             print(f"run{it}: {args.reads / dt:8.1f} reads/s  ({dt:.2f}s)",
                   file=sys.stderr)
-            if it == 0 and args.device == "tpu":
-                await_link_verdict()
         print(f"steady: {args.reads / best:8.1f} reads/s  ({best:.2f}s)")
         return
 

@@ -82,15 +82,20 @@ def make_genome(path, n_contigs=25, contig_len=2_000_000, seed=42):
 
 
 def simulate(ref_path, out_path, n, read_len, err, seed, hpc_style=False):
+    """n reads of read_len bases with substitutions/deletions/insertions
+    at rate `err` — a float, or a (lo, hi) range drawn per read."""
     from minimap2_chaindp_tpu.io.fastx import read_fastx
     rng = np.random.default_rng(seed)
     contigs = [(r.name, r.seq) for r in read_fastx(ref_path)]
     comp = str.maketrans("ACGT", "TGCA")
+    err_range = err if isinstance(err, tuple) else None
     with open(out_path, "w") as f:
         for i in range(n):
             name, seq = contigs[int(rng.integers(0, len(contigs)))]
             st = int(rng.integers(0, len(seq) - read_len))
             frag = seq[st:st + read_len]
+            if err_range is not None:
+                err = float(rng.uniform(*err_range))
             out = []
             for ch in frag:
                 r = rng.random()
@@ -357,7 +362,7 @@ def main():
         # about the sharded tables, not about re-paying the index build
         # in both processes
         t0 = time.perf_counter()
-        dt_m, out_m = run_cli(["-ax", "map-ont", "--device", "tpu",
+        dt_m, out_m = run_cli(["-ax", "map-ont", "--device", "gpu",
                                "--mesh", ns.mesh, mmi, mq], env)
         _, out_h = run_cli(["-ax", "map-ont", "--device", "host", mmi, mq])
         ident = "BYTE-IDENTICAL" if out_m == out_h else "MISMATCH"
